@@ -39,3 +39,8 @@ assert jax.default_backend() == "cpu", (
     f"tests must run on the CPU mesh, got {jax.default_backend()!r} — "
     "a backend was initialized before conftest could force the platform")
 assert len(jax.devices()) == 8, jax.devices()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips on a host without one")
