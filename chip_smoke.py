@@ -5,15 +5,16 @@ Run from the root of a checkout on a host with one CUDA card:
 
     python3 chip_smoke.py
 
-It builds every kernel of the single-history check from the sources in
-the checkout, drives the port's main path through its public entry
-points (``checker.analysis`` and ``filetest``) on the benchmark
-histories at full size, holds every kernel against its plain PyTorch
-version on the same card tensors, and times both. It imports nothing
-of JAX and nothing of the JAX package, and falls back to nothing: any
-failure exits non-zero before the result line.
+It builds every kernel from the sources in the checkout (one ``nvcc``
+per source, all at once), drives the port's main paths through their
+public entry points (``checker.analysis``, ``filetest`` and
+``checker.batch.check_batch``) at full size, holds every kernel against
+its plain PyTorch version on the same card tensors, and times both. It
+imports nothing of JAX and nothing of the JAX package, and falls back
+to nothing: any failure exits non-zero before the result line.
 
-Requests (histories from ``ops.synth``, seeds as in ``bench.py``):
+Single-history requests (histories from ``ops.synth``, seeds as in
+``bench.py``), counted as one path:
 
 - (a) 5 processes, 100k events (the 50k-op cas-register history):
   VALID through the kernel;
@@ -21,9 +22,46 @@ Requests (histories from ``ops.synth``, seeds as in ``bench.py``):
   INVALID with op index and counterexample paths from the kernel's
   chunked boundary;
 - (c) 10 processes, max 5 pending, 100k events: VALID;
-- (d) 10 processes, max 10 pending, 3000 events: the 16-row, 3-word
-  key tier; any verdict (an UNKNOWN shows the overflow path);
-- (e) an EDN history file through ``filetest``; checks the exit code.
+- (d) 10 processes, max 10 pending, 3000 events: the kernel (16-row,
+  3-word tier) is tried first and overflows; the seg2 capacity ladder
+  decides;
+- (e) an EDN history file through ``filetest``; checks the exit code;
+- (f) a wide history, P = 17 (``wide_register_batch_columns(1009, 1,
+  1, 1, 16)``): VALID from the MXU frontier engine at capacity 131072.
+
+Batch requests (``check_batch``), counted as a second path:
+
+- (g) the north star: 4096 histories x 2000 ops
+  (``register_batch_packed(11_000_000, ...)``) at F=128, all VALID
+  through the stream kernel on at least 132 CTAs; then ``bench.py``'s
+  256 x 800-event batch (``Random(7)``) at F=256;
+- (h) 56 histories: valid and mutated 5-process histories with eight
+  8-process histories that overflow the kernel's 128 configs; at
+  F=8192 the overflowed lanes escalate through the keys engine (the
+  pair-sort kernel); every lane's (status, fail_at) must equal its own
+  ``analysis`` on the card. The keys engine, and so the pair sort,
+  serves an escalation only when the batch's slot count rounded up to
+  a power of two is at most 8 and its key layout fits;
+- (h10) 20 histories: 5-process histories with four of request (d)'s
+  family (10 processes, up to 10 calls in flight, 600 events) that
+  overflow 128 configs; 10 slots round up to 16, so at F=8192 those
+  lanes escalate through the MXU frontier engine, not the pair sort;
+  every lane must equal its own ``analysis`` on the card.
+
+Then: (d') the seg2 engine on the card against the same engine on CPU
+tensors for history (d); kernel parity on the card for ``seg_search``
+(windows of (a)-(d)), ``seg_search[stream]`` (request (h)'s whole
+launch, two of request (g)'s own group streams launched together at
+(g)'s layout, and one group stream of nine (h) histories with an
+INVALID and an overflowing one in the middle) and ``pair_sort`` (the
+widest rows the keys engine sorted in (h), and random rows at the
+shared-memory and the global-memory widths).
+
+Each kernel's bound counts what its function needs on this run's
+inputs, whatever algorithm the kernel chose: bytes read once and
+written once at the HBM rate, and comparisons of int32 words (sorting
+m keys takes m * floor(log2 m), finding duplicates m - 1) at the card's
+int32 rate, 64 INT32 lanes per SM x SMs x the maximum SM clock.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -45,7 +83,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_EVENTS = 100_000
 WINDOW = 4096          # segments per parity window
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12
+INT32_LANES_PER_SM = 64              # Hopper's INT32 units per SM
+G_HISTORIES, G_OPS = 4096, 2000      # (g), the batch north star
+MIN_CTAS = 132                       # the H100's SM count
 
 
 def _fail(msg: str) -> int:
@@ -169,6 +209,87 @@ def _parity(name, mm, packed, dev, record):
     return head, err
 
 
+def _int32_ops_per_s(dev) -> float:
+    """The card's int32 rate: INT32 lanes per SM x SMs x the maximum SM
+    clock that ``nvidia-smi`` reports."""
+    import torch
+
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60,
+                       check=True)
+    mhz = float(r.stdout.split()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return INT32_LANES_PER_SM * sms * mhz * 1e6
+
+
+def _bound(nbytes: float, ops: float, int32_rate: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    int32 operations over the card's int32 rate."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / int32_rate * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def _h_histories():
+    """(h): 48 five-process histories (every third mutated) with eight
+    8-process histories (up to 8 calls in flight) that overflow 128
+    configs, spread through the batch. Eight slots are the most the
+    keys engine, and so the pair sort, takes: a batch whose slot count
+    rounds up to 16 escalates through the MXU engine instead (h10)."""
+    from comdb2_tpu_torch.ops.synth import mutate, register_history
+
+    rng = random.Random(5)
+    hs = []
+    for i in range(48):
+        h = register_history(rng, n_procs=5, n_events=1000, values=5,
+                             p_info=0.0)
+        hs.append(mutate(rng, h, values=5) if i % 3 == 1 else h)
+    for j, seed in enumerate((0, 1, 3, 4, 5, 7, 8, 10)):
+        hs.insert(3 + 7 * j, register_history(
+            random.Random(seed), n_procs=8, n_events=400, values=5,
+            p_info=0.0, max_pending=8))
+    return hs
+
+
+def _h10_histories():
+    """(h10): 16 five-process histories (every third mutated) with four
+    of request (d)'s family — 10 processes, up to 10 calls in flight —
+    that overflow 128 configs, spread through the batch."""
+    from comdb2_tpu_torch.ops.synth import mutate, register_history
+
+    rng = random.Random(10)
+    hs = []
+    for i in range(16):
+        h = register_history(rng, n_procs=5, n_events=1000, values=5,
+                             p_info=0.0)
+        hs.append(mutate(rng, h, values=5) if i % 3 == 1 else h)
+    for j, seed in enumerate((77, 78, 79, 80)):
+        hs.insert(2 + 5 * j, register_history(
+            random.Random(seed), n_procs=10, n_events=600, values=5,
+            p_info=0.0, max_pending=10))
+    return hs
+
+
+def _lanes_vs_analysis(hs, st, fa):
+    """Each batch lane's (status, fail_at) beside its own single-history
+    ``analysis`` on the card; returns the lanes and the mismatched
+    indices."""
+    from comdb2_tpu_torch.checker import analysis
+    from comdb2_tpu_torch.checker import linear_torch as LT
+    from comdb2_tpu_torch.models.model import cas_register
+
+    lanes = []
+    for i, h in enumerate(hs):
+        r = analysis(cas_register(), h)
+        want = ({True: LT.VALID, False: LT.INVALID}.get(r.valid,
+                                                          LT.UNKNOWN),
+                -1 if r.valid is True else r.op_index)
+        lanes.append((int(st[i]), int(fa[i]), want))
+    return lanes, [i for i, (s_, f_, w) in enumerate(lanes)
+                   if (s_, f_) != w]
+
+
 def main() -> int:
     try:
         import torch
@@ -182,28 +303,43 @@ def main() -> int:
     except ImportError as e:
         return _fail(f"comdb2_tpu_torch not found next to this script "
                      f"({e}); run it from the repository root")
+    import numpy as np
+
     from comdb2_tpu_torch import filetest
     from comdb2_tpu_torch.checker import analysis, linear_host
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.checker import linear_torch as LT
+    from comdb2_tpu_torch.checker import pair_sort as PSORT
     from comdb2_tpu_torch.checker import seg_kernel as SK
     from comdb2_tpu_torch.kernels import build
     from comdb2_tpu_torch.models.memo import memo
     from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops import synth_columnar as SC
     from comdb2_tpu_torch.ops.history import history_to_edn
     from comdb2_tpu_torch.ops.packed import pack_history
     from comdb2_tpu_torch.ops.synth import mutate, register_history
+    from comdb2_tpu_torch.utils import next_pow2
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     gpu = _gpu_line()
     print(gpu)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    int32_rate = _int32_ops_per_s(dev)
+    print(f"int32 rate for the bounds: {int32_rate:.4e} op/s "
+          f"({INT32_LANES_PER_SM} lanes x SMs x max SM clock); HBM "
+          f"{HBM_BYTES_PER_S:.3e} B/s")
     t = time.perf_counter()
-    build.build()
-    build.load()
-    print(f"build: seg_search.cu for sm_90a in "
-          f"{time.perf_counter() - t:.1f} s")
-    for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    build.build_all()
+    for name in build.SOURCES:
+        build.load(name)
+    print(f"build: {', '.join(f'{n}.cu' for n in build.SOURCES)} for "
+          f"sm_90a in {time.perf_counter() - t:.1f} s (one nvcc each, "
+          "in parallel)")
+    for name, log in build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {name}: {line.strip()}")
 
     t = time.perf_counter()
     h_a = register_history(random.Random(42), n_procs=5,
@@ -216,6 +352,8 @@ def main() -> int:
     h_e = mutate(random.Random(3), register_history(
         random.Random(3), n_procs=5, n_events=2000, values=5,
         p_info=0.0), values=5)
+    h_f = SC.pack_register_columns(SC.wide_register_batch_columns(
+        1009, 1, 1, 1, 16, values=16))[0]
     print(f"histories generated in {time.perf_counter() - t:.1f} s")
     edn_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     edn_path = os.path.join(edn_dir.name, "history.edn")
@@ -226,25 +364,33 @@ def main() -> int:
                                packed_e).valid
     want_rc = 0 if want_e else 1
 
-    # --- the main path, counted ------------------------------------------
-    results = {}
-    SK.LAUNCHES = 0
+    def zero_counts():
+        SK.LAUNCHES = SK.STREAM_LAUNCHES = PSORT.LAUNCHES = 0
 
-    def run(name, h):
+    # --- path 1: single-history analysis, counted ---------------------------
+    results = {}
+    zero_counts()
+
+    def run(name, h, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        a = analysis(cas_register(), h)
+        a = analysis(cas_register(), h, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         results[name] = {"valid": a.valid, "op_index": a.op_index,
+                         "final_count": a.final_count,
                          "engine": a.info.get("engine"),
+                         "frontier_capacity":
+                             a.info.get("frontier_capacity"),
                          "effective_slots": a.info.get("effective_slots"),
                          "paths": len(a.info.get("paths", [])),
                          "engines_tried": a.info.get("engines_tried"),
                          "wall_s": wall}
         print(f"request {name}: valid={a.valid!r} op_index={a.op_index} "
               f"engine={a.info.get('engine')} "
+              f"F={a.info.get('frontier_capacity')} "
               f"slots={a.info.get('effective_slots')} "
+              f"tried={a.info.get('engines_tried')} "
               f"paths={len(a.info.get('paths', []))} wall {wall:.3f} s")
         return a
 
@@ -264,6 +410,7 @@ def main() -> int:
     results["e"] = {"exit": rc_e, "want": want_rc,
                     "wall_s": time.perf_counter() - t0}
     print(f"request e: filetest exit {rc_e} (want {want_rc})")
+    f = run("f", h_f, backend="device")
     launches = SK.LAUNCHES
 
     checks = [
@@ -275,17 +422,170 @@ def main() -> int:
          "(b) no INVALID with op index and paths from cuda-seg"),
         (c.valid is True and c.info.get("engine") == "cuda-seg",
          f"(c) not VALID through cuda-seg: {results['c']}"),
-        (d.info.get("engine") == "cuda-seg"
-         and d.info.get("effective_slots", 0) >= 8,
-         f"(d) not on the 16-row tier through cuda-seg: {results['d']}"),
+        (d.info.get("effective_slots", 0) >= 8
+         and (d.info.get("engines_tried") or [None])[0]
+         == {"engine": "cuda-seg", "frontier_capacity": 128}
+         and d.info.get("engine") == "torch-seg2" and d.valid is True,
+         f"(d) not tried on the kernel first and decided VALID by the "
+         f"seg2 ladder: {results['d']}"),
         (rc_e == want_rc, f"(e) filetest exit {rc_e}, want {want_rc}"),
-        (launches > 0, "the main path launched no kernel"),
+        (f.valid is True and f.info.get("engine") == "mxu-frontier"
+         and f.info.get("frontier_capacity") == 131072
+         and f.final_count == 1,
+         f"(f) not VALID from mxu-frontier at 131072: {results['f']}"),
+        (launches > 0, "the single-history path launched no kernel"),
     ]
     for ok, msg in checks:
         if not ok:
             return _fail(msg)
     print(f"b: first INVALID mutate seed {b_seed}")
-    print(f"LAUNCHES seg_search (main path): {launches}")
+    print(f"LAUNCHES seg_search (single-history path): {launches}")
+
+    # --- (d'): seg2 on the card against seg2 on CPU tensors ---------------
+    packed_d = pack_history(h_d)
+    mm_d = memo(cas_register(), packed_d)
+    segs_d = LT.make_segments(packed_d)
+    segs_d = LT.make_segments(
+        packed_d, s_pad=next_pow2(segs_d.ok_proc.shape[0], 64),
+        k_pad=next_pow2(segs_d.inv_proc.shape[1], 2))
+    segs_d, pe_d = LT.remap_slots(segs_d)
+    P2_d = max(pe_d + (pe_d & 1), 2)
+    succ_d = LT.pad_succ(mm_d.succ, next_pow2(mm_d.succ.shape[0]),
+                         next_pow2(mm_d.succ.shape[1]))
+    kw_d = dict(F=d.info["frontier_capacity"], Fs=32, P=P2_d,
+                n_states=mm_d.n_states, n_transitions=mm_d.n_transitions)
+    args_d = (succ_d, segs_d.inv_proc, segs_d.inv_tr, segs_d.ok_proc,
+              segs_d.depth)
+    t0 = time.perf_counter()
+    r_gpu = LT.check_device_seg2(*args_d, device=dev, **kw_d)
+    t_gpu = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    r_cpu = LT.check_device_seg2(*args_d, device="cpu", **kw_d)
+    t_cpu = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    results["d'"] = {"F": kw_d["F"], "card": r_gpu, "cpu": r_cpu,
+                     "card_s": t_gpu, "cpu_s": t_cpu}
+    print(f"request d': seg2 at F={kw_d['F']} on the card {r_gpu} in "
+          f"{t_gpu:.2f} s, on CPU tensors {r_cpu} in {t_cpu:.2f} s")
+    if r_gpu != r_cpu or r_gpu[0] != LT.VALID:
+        return _fail(f"(d') seg2 on the card {r_gpu} != on CPU {r_cpu}")
+
+    # --- path 2: batches, counted -----------------------------------------
+    t0 = time.perf_counter()
+    cols = SC.register_batch_columns(11_000_000, G_HISTORIES, G_OPS,
+                                     n_procs=5, values=5)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    packeds_g = SC.pack_register_columns(cols)
+    del cols
+    batch_g = TB.pack_batch(packeds_g, cas_register(), build_streams=False)
+    t_pack = time.perf_counter() - t0
+    n_ops_g = sum(int((p.type == 0).sum()) for p in packeds_g)
+    t0 = time.perf_counter()
+    for p in packeds_g:
+        p._segments_exact = LT.make_segments(p)
+    t_seg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    TB._stream_segments(batch_g)
+    t_remap = time.perf_counter() - t0
+    rng7 = random.Random(7)
+    batch_g2 = TB.pack_batch(
+        [register_history(rng7, n_procs=5, n_events=800, values=5,
+                          p_info=0.0) for _ in range(256)], cas_register())
+    hs_h = _h_histories()
+    batch_h = TB.pack_batch(hs_h, cas_register())
+    hs_h10 = _h10_histories()
+    batch_h10 = TB.pack_batch(hs_h10, cas_register())
+    captured = {}
+    sort_fn = PSORT.pair_sort
+
+    def capturing_sort(hi, lo):
+        if hi.numel() > captured.get("numel", 0):
+            captured.update(numel=hi.numel(), hi=hi.clone(), lo=lo.clone())
+        return sort_fn(hi, lo)
+
+    PSORT.pair_sort = capturing_sort
+    zero_counts()
+    batch_res = {}
+
+    def run_batch(name, batch, F):
+        info: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, fa, n = TB.check_batch(batch, F=F, info=info)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batch_res[name] = {"F": F, "histories": len(batch),
+                           "wall_s": wall, "engine": info.get("engine"),
+                           "stream": info.get("stream"),
+                           "escalated": info.get("escalated"),
+                           "status_counts": {int(k): int(v) for k, v in zip(
+                               *np.unique(st, return_counts=True))}}
+        print(f"request {name}: {len(batch)} histories F={F} "
+              f"engine={info.get('engine')} stream={info.get('stream')} "
+              f"escalated={info.get('escalated')} "
+              f"statuses={batch_res[name]['status_counts']} "
+              f"wall {wall:.3f} s")
+        return st, fa, n, info
+
+    st_g, _, _, info_g = run_batch("g", batch_g, 128)
+    st_g2, _, _, info_g2 = run_batch("g2", batch_g2, 256)
+    st_h, fa_h, _, info_h = run_batch("h", batch_h, 8192)
+    st_h10, fa_h10, _, info_h10 = run_batch("h10", batch_h10, 8192)
+    stream_launches = SK.STREAM_LAUNCHES
+    sort_launches = PSORT.LAUNCHES
+    PSORT.pair_sort = sort_fn
+    batch_res["g"]["host_s"] = {"generate": t_gen, "pack": t_pack,
+                                "segments": t_seg, "remap": t_remap}
+    batch_res["g"]["ops"] = n_ops_g
+    print(f"  g host: generate {t_gen:.2f} s, pack {t_pack:.2f} s, "
+          f"segments {t_seg:.2f} s, remap {t_remap:.2f} s; "
+          f"{n_ops_g} ops")
+    print(f"LAUNCHES seg_search[stream] (batch path): {stream_launches}; "
+          f"pair_sort: {sort_launches}")
+
+    # every (h) and (h10) lane against its own single-history analysis
+    lanes, mismatched = _lanes_vs_analysis(hs_h, st_h, fa_h)
+    batch_res["h"]["lanes_mismatched"] = mismatched
+    batch_res["h"]["invalid_lanes"] = sum(1 for s_, _, _ in lanes
+                                          if s_ == LT.INVALID)
+    lanes10, mismatched10 = _lanes_vs_analysis(hs_h10, st_h10, fa_h10)
+    batch_res["h10"]["lanes_mismatched"] = mismatched10
+    batch_res["h10"]["invalid_lanes"] = sum(1 for s_, _, _ in lanes10
+                                            if s_ == LT.INVALID)
+    checks = [
+        (bool((st_g == LT.VALID).all()) and info_g.get("engine") == "stream"
+         and info_g["stream"]["groups"] >= MIN_CTAS,
+         f"(g) not all VALID through the stream kernel on >= {MIN_CTAS} "
+         f"CTAs: {batch_res['g']}"),
+        (bool((st_g2 == LT.VALID).all())
+         and info_g2.get("engine") == "stream",
+         f"(g2) not all VALID through the stream kernel: "
+         f"{batch_res['g2']}"),
+        (info_h.get("engine") == "stream"
+         and (info_h.get("escalated") or {}).get("engine") == "keys"
+         and info_h["escalated"]["count"] == 8,
+         f"(h) the 8 overflowing lanes did not escalate through keys: "
+         f"{batch_res['h']}"),
+        (not mismatched, f"(h) lanes {mismatched} differ from their "
+         f"single-history analysis: {[lanes[i] for i in mismatched]}"),
+        (batch_res["h"]["invalid_lanes"] > 0, "(h) has no INVALID lane"),
+        (info_h10.get("engine") == "stream"
+         and (info_h10.get("escalated") or {}).get("engine") == "mxu"
+         and info_h10["escalated"]["count"] == 4,
+         f"(h10) the 10-process lanes did not escalate through mxu: "
+         f"{batch_res['h10']}"),
+        (not mismatched10, f"(h10) lanes {mismatched10} differ from "
+         f"their single-history analysis: "
+         f"{[lanes10[i] for i in mismatched10]}"),
+        (stream_launches > 0, "the batch path launched no stream kernel"),
+        (sort_launches > 0, "the batch path launched no pair_sort"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            return _fail(msg)
 
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
@@ -305,31 +605,239 @@ def main() -> int:
     if (tier["rows"], tier["n_words"]) != (16, 3):
         return _fail(f"(d) did not run the 16-row, 3-word tier: {tier}")
     ms, plain_ms, work, nbytes, spec = head
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = work.get("compare_exchanges", 0) * spec.n_words
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    entry = {"name": "seg_search", "route": "cuda",
-             "source": "comdb2_tpu_torch/kernels/seg_search.cu",
-             "replaces": "comdb2_tpu/checker/pallas_seg.py:561",
-             "launches": launches, "max_abs_err": max_err,
-             "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": max(bytes_ms, ops_ms),
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-             "library_ms": None,
-             "parity": "bit-equal (status, fail, n, frontier)",
-             "measured_on": f"request (a), segments [0, {WINDOW})"}
+    bound_ms, bound_by = _bound(
+        nbytes, work.get("compares", 0) * spec.n_words, int32_rate)
+    entries = [{
+        "name": "seg_search", "route": "cuda",
+        "source": "comdb2_tpu_torch/kernels/seg_search.cu",
+        "replaces": "comdb2_tpu/checker/pallas_seg.py:561",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "parity": "bit-equal (status, fail, n, frontier)",
+        "measured_on": f"request (a), segments [0, {WINDOW})"}]
+
+    # stream mode, at the main path's own launch shapes: (h)'s whole
+    # launch, two of (g)'s group streams together at (g)'s layout, and
+    # one group stream of nine (h) histories with an INVALID and an
+    # overflowing one in the middle
+    def stream_inputs(batch, info_b):
+        streams, _ = TB._stream_segments(batch)
+        sizes = dict(n_states=batch.memo.n_states,
+                     n_transitions=batch.memo.n_transitions)
+        spec_b = TB._slice_spec(streams, sizes)
+        table = torch.from_numpy(SK.pack_table(
+            batch.memo.succ[:sizes["n_states"],
+                            :sizes["n_transitions"]])).to(dev)
+        groups = SK.default_groups(len(streams), spec_b, table.numel(), dev)
+        t0 = time.perf_counter()
+        seg, plan, _ = SK.pack_groups(streams, spec_b, groups)
+        t_pack = time.perf_counter() - t0
+        if (len(plan), seg.shape[1]) != (info_b["stream"]["groups"],
+                                         info_b["stream"]["rows"]):
+            raise AssertionError(f"re-packed launch {len(plan)} x "
+                                 f"{seg.shape[1]} != the main path's "
+                                 f"{info_b['stream']}")
+        return (streams, sizes["n_transitions"], spec_b, table,
+                torch.from_numpy(seg).to(dev), plan, t_pack)
+
+    def stream_check(label, seg, stride, table, spec_b, n_hist):
+        """Kernel vs plain version on one launch: bit-equal results per
+        history and per-CTA work. Returns (results, work, plain ms,
+        max abs err)."""
+        work_k = torch.zeros(seg.shape[0], dtype=torch.int64, device=dev)
+        got_k = SK.seg_search_stream(seg, stride, table, spec_b, n_hist,
+                                     work=work_k)
+        torch.cuda.synchronize()
+        want_k = torch.zeros_like(got_k)
+        ws0 = torch.from_numpy(SK.initial_frontier(spec_b)).to(dev)
+        st0 = torch.from_numpy(SK._init_stat()).to(dev)
+        cmp_k = []
+        t0 = time.perf_counter()
+        for g_ in range(seg.shape[0]):
+            w_: dict = {}
+            SK.seg_search_reference(seg[g_], 0, stride, ws0, st0, table,
+                                    spec_b, work=w_, results=want_k[g_])
+            cmp_k.append(w_.get("compares", 0))
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        err_k = int((got_k.long() - want_k.long()).abs().max())
+        same = torch.equal(got_k, want_k) and work_k.tolist() == cmp_k
+        print(f"  stream {label}: {seg.shape[0]} CTAs x {seg.shape[1]} "
+              f"rows, {n_hist} histories per CTA at most: "
+              f"{'bit-equal' if same else 'DIFFERENT'} (status, fail, n) "
+              f"and work; plain version {plain:.1f} ms")
+        if not same:
+            raise AssertionError(f"seg_search[stream] differs from its "
+                                 f"plain version on {label}")
+        return got_k, work_k, plain, err_k
+
+    (streams_h, stride_h, spec_h, table_h, seg_h, plan_h,
+     _) = stream_inputs(batch_h, info_h)
+    nh_h = max(len(g_) for g_ in plan_h)
+    got_h, work_h, plain_ms_s, err_s = stream_check(
+        "(h) whole launch", seg_h, stride_h, table_h, spec_h, nh_h)
+    ms_s = _time_cuda(lambda: SK.seg_search_stream(
+        seg_h, stride_h, table_h, spec_h, nh_h), 5)
+    bound_s, by_s = _bound(4 * (seg_h.numel() + table_h.numel()
+                                + got_h.numel()),
+                           int(work_h.sum()) * spec_h.n_words, int32_rate)
+
+    five = [i for i in range(len(hs_h)) if len(batch_h.packeds[i]
+                                                  .process_table) == 5]
+    valid5 = [i for i in five if int(st_h[i]) == LT.VALID]
+    invalid5 = [i for i in five if int(st_h[i]) == LT.INVALID]
+    over = [i for i in range(len(hs_h)) if i not in five]
+    group = valid5[:3] + invalid5[:1] + over[:1] + valid5[3:7]
+    seg_np, _, _ = SK.pack_groups([streams_h[i] for i in group], spec_h, 1)
+    got, _, _, e_ = stream_check(
+        f"one group of {len(group)} (h) histories",
+        torch.from_numpy(seg_np).to(dev), stride_h, table_h, spec_h,
+        len(group))
+    err_s = max(err_s, e_)
+    verdicts = [tuple(r) for r in got[0].tolist()]
+    print(f"    verdicts in stream order: {verdicts}")
+    if (verdicts[3][0], verdicts[4][0]) != (LT.INVALID, LT.UNKNOWN) or \
+            any(v[0] != LT.VALID for v in verdicts[:3] + verdicts[5:]):
+        return _fail(f"stream group verdicts out of place: {verdicts}")
+
+    # the (g) launch itself, re-timed outside the counted path
+    (streams_g, stride_g, spec_g, table_g, seg_g, plan_g,
+     t_groups) = stream_inputs(batch_g, info_g)
+    n_hist_g = max(len(g_) for g_ in plan_g)
+    work_g = torch.zeros(seg_g.shape[0], dtype=torch.int64, device=dev)
+    res_g = SK.seg_search_stream(seg_g, stride_g, table_g, spec_g,
+                                 n_hist_g, work=work_g)
+    torch.cuda.synchronize()
+    ms_g = _time_cuda(lambda: SK.seg_search_stream(
+        seg_g, stride_g, table_g, spec_g, n_hist_g), 2)
+    bound_g, by_g = _bound(4 * (seg_g.numel() + table_g.numel()
+                                + res_g.numel()),
+                           int(work_g.sum()) * spec_g.n_words, int32_rate)
+    # two of (g)'s own group streams launched together: the longest,
+    # and one holding a different number of histories (else the
+    # shortest)
+    real = [sum(streams_g[b].ok_proc.shape[0] for b in grp) + len(grp) + 1
+            for grp in plan_g]
+    gi = max(range(len(plan_g)), key=lambda g_: real[g_])
+    others = [g_ for g_ in range(len(plan_g))
+              if len(plan_g[g_]) != len(plan_g[gi])]
+    gj = others[0] if others else min(range(len(plan_g)),
+                                      key=lambda g_: real[g_])
+    pick = torch.tensor([gi, gj], device=dev)
+    got2, work2, _, e_ = stream_check(
+        f"(g) groups {gi} and {gj} ({len(plan_g[gi])} and "
+        f"{len(plan_g[gj])} histories, {real[gi]} and {real[gj]} rows)",
+        seg_g[pick].contiguous(), stride_g, table_g, spec_g, n_hist_g)
+    err_s = max(err_s, e_)
+    if not (torch.equal(got2, res_g[pick])
+            and torch.equal(work2, work_g[pick])):
+        return _fail("(g)'s two group streams alone differ from the same "
+                     "groups in the whole launch")
+    batch_res["g"]["kernel"] = {
+        "groups": int(seg_g.shape[0]), "rows_per_group": int(seg_g.shape[1]),
+        "histories_per_group_max": n_hist_g, "ms": ms_g,
+        "bound_ms": bound_g, "bound_by": by_g,
+        "compares": int(work_g.sum()),
+        "pack_groups_s": t_groups,
+        "checked_ops_per_s": n_ops_g / (ms_g / 1e3)}
+    batch_res["h"]["kernel"] = {
+        "groups": int(seg_h.shape[0]), "rows_per_group": int(seg_h.shape[1]),
+        "ms": ms_s, "plain_ms": plain_ms_s, "bound_ms": bound_s,
+        "bound_by": by_s, "compares": int(work_h.sum())}
+    print(f"  g kernel: {seg_g.shape[0]} CTAs x {seg_g.shape[1]} rows, "
+          f"{ms_g:.3f} ms (CUDA events, mean of 2), bound {bound_g:.5f} ms "
+          f"({by_g}); {n_ops_g / (ms_g / 1e3):.0f} checked ops/s; "
+          f"group packing {t_groups:.2f} s")
+    print(f"  h kernel: {seg_h.shape[0]} CTAs x {seg_h.shape[1]} rows, "
+          f"{ms_s:.3f} ms (CUDA events, mean of 5), plain {plain_ms_s:.1f}"
+          f" ms, bound {bound_s:.5f} ms ({by_s})")
+    entries.append({
+        "name": "seg_search[stream]", "route": "cuda",
+        "source": "comdb2_tpu_torch/kernels/seg_search.cu",
+        "replaces": "comdb2_tpu/checker/pallas_seg.py:606",
+        "launches": stream_launches, "max_abs_err": err_s,
+        "ms": ms_s, "plain_ms": plain_ms_s, "bound_ms": bound_s,
+        "bound_by": by_s, "library_ms": None,
+        "parity": "bit-equal (status, fail, n) per history and work",
+        "measured_on": f"request (h)'s whole launch, "
+                       f"{int(seg_h.shape[0])} CTAs",
+        "batch_ms": ms_g, "batch_bound_ms": bound_g,
+        "batch_bound_by": by_g,
+        "batch_measured_on": f"(g), {int(seg_g.shape[0])} CTAs"})
+
+    # pair_sort: the widest rows the keys engine sorted in (h), and
+    # random rows at both widths
+    hi_c, lo_c = captured["hi"], captured["lo"]
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    cases = [("h", hi_c, lo_c)]
+    for B_, N_ in ((256, 4096), (4, 131072)):
+        hi_r = torch.randint(-8, 8, (B_, N_), generator=gen,
+                             dtype=torch.int32)
+        lo_r = torch.randint(-2**31, 2**31 - 1, (B_, N_), generator=gen,
+                             dtype=torch.int32)
+        hi_r[:, :N_ // 4] = 1 << 30
+        lo_r[:, :N_ // 4] = 7
+        cases.append((f"random {B_}x{N_}", hi_r.to(dev), lo_r.to(dev)))
+    err_p = 0
+    for name, hi_, lo_ in cases:
+        k_out = sort_fn(hi_, lo_)
+        p_out = PSORT.pair_sort_reference(hi_, lo_)
+        torch.cuda.synchronize()
+        e = max(int((k_out[0].long() - p_out[0].long()).abs().max()),
+                int((k_out[1].long() - p_out[1].long()).abs().max()))
+        err_p = max(err_p, e)
+        print(f"  pair_sort {name} {tuple(hi_.shape)}: "
+              f"{'bit-equal' if e == 0 else f'max diff {e}'}")
+        if e:
+            return _fail(f"pair_sort differs from its plain version on "
+                         f"{name}")
+    Bc, Nc = hi_c.shape
+    ms_p = _time_cuda(lambda: sort_fn(hi_c, lo_c), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PSORT.pair_sort_reference(hi_c, lo_c)
+    torch.cuda.synchronize()
+    plain_ms_p = (time.perf_counter() - t0) * 1e3
+    key = (hi_c.long() << 32) | (lo_c.long() + 2**31)
+    lib_sorted = torch.sort(key, dim=1).values
+    ref = PSORT.pair_sort_reference(hi_c, lo_c)
+    if not (torch.equal((lib_sorted >> 32).int(), ref[0])
+            and torch.equal(((lib_sorted & 0xffffffff) - 2**31).int(),
+                            ref[1])):
+        return _fail("torch.sort on the int64 key is not the same sort")
+    lib_ms_p = _time_cuda(lambda: torch.sort(key, dim=1), 5)
+    lg = Nc.bit_length() - 1
+    # a sort of N pairs needs N * floor(log2 N) comparisons of two words
+    bound_p, by_p = _bound(16 * Bc * Nc, 2 * Bc * Nc * lg, int32_rate)
+    entries.append({
+        "name": "pair_sort", "route": "cuda",
+        "source": "comdb2_tpu_torch/kernels/pair_sort.cu",
+        "replaces": "comdb2_tpu/checker/pallas_sort.py:54",
+        "launches": sort_launches, "max_abs_err": err_p,
+        "ms": ms_p, "plain_ms": plain_ms_p, "bound_ms": bound_p,
+        "bound_by": by_p, "library_ms": lib_ms_p,
+        "parity": "bit-equal (hi, lo)",
+        "measured_on": f"(h), the widest keys-engine block sort "
+                       f"{Bc}x{Nc}"})
+    print(f"  pair_sort {Bc}x{Nc}: kernel {ms_p:.4f} ms, plain "
+          f"{plain_ms_p:.3f} ms, torch.sort on the int64 key "
+          f"{lib_ms_p:.4f} ms, bound {bound_p:.5f} ms ({by_p})")
+
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
-        json.dump({"gpu": gpu, "requests": results, "kernels": [entry],
-                   "work": work, "bytes": nbytes}, fh, indent=1,
+        json.dump({"gpu": gpu, "requests": results, "batches": batch_res,
+                   "kernels": entries, "work": work, "bytes": nbytes,
+                   "wall_s": time.perf_counter() - t_start}, fh, indent=1,
                   default=str)
     leaked = sorted(m for m in sys.modules
                     if m in ("jax", "comdb2_tpu")
                     or m.startswith(("jax.", "comdb2_tpu.")))
     if leaked:
         return _fail(f"JAX or the JAX package was imported: {leaked}")
-    print(json.dumps({"kernels": [entry]}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

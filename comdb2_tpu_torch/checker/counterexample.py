@@ -5,10 +5,13 @@ The role of the reference's ``final-paths`` (``knossos/linear.clj:
 linearization orders a human can read, without re-running the whole
 history on the host:
 
-1. Re-scan the history with the segment-search kernel one chunk per
-   launch (:func:`~.seg_kernel.check_device_seg_kernel_chunked`),
-   keeping the frontier at the last chunk boundary BEFORE the frontier
-   died; it decodes directly into host configs.
+1. Re-scan the history one chunk at a time, keeping the frontier at
+   the last chunk boundary BEFORE the frontier died; it decodes
+   directly into host configs. The segment-search kernel's chunked scan
+   (:func:`~.seg_kernel.check_device_seg_kernel_chunked`) serves when
+   it reproduces the INVALID; otherwise (its gate rejects the shape, or
+   its 128-config frontier overflows) the seg2 engine's chunked scan
+   (:func:`~.linear_torch.check_device_seg2_chunk`) at capacity F.
 2. Replay at most one chunk of segments on host from that frontier
    (:func:`~.linear_host.check` with ``start_index``/``init_configs``)
    to recover the exact dying op, the closed frontier at death, and
@@ -23,6 +26,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import List, Optional, Set
+
+import numpy as np
 
 from ..models.memo import MemoizedModel
 from ..ops.packed import PackedHistory
@@ -63,14 +68,23 @@ def _unmap_configs(cfgs, owners_row, P: int) -> Set[Config]:
     return out
 
 
+def _carry_configs(carry, P: int) -> Set[Config]:
+    """Decode a seg2 carry ``(states, slots, valid, ...)`` (tensors)
+    into host configs. Slot encoding is shared with the host engine
+    (IDLE/LIN/transition id); padding slots beyond P are always IDLE."""
+    states, slots, valid = (t.cpu().numpy() for t in carry[:3])
+    return {(int(states[i]), tuple(int(x) for x in slots[i][:P]))
+            for i in np.flatnonzero(valid)}
+
+
 def reconstruct(mm: MemoizedModel, packed: PackedHistory,
-                max_paths: int = 10,
+                F: int = 256, max_paths: int = 10,
                 max_host_configs: int = 1 << 16, device=None
                 ) -> Optional[Counterexample]:
-    """Reconstruct the counterexample for a history the kernel judged
-    INVALID. Returns None when the re-scan does not reproduce the
-    failure. The host replays at most one re-scan chunk
-    (``seg_kernel.CHUNK`` segments)."""
+    """Reconstruct the counterexample for a history the device engines
+    judged INVALID. Returns None when the re-scan does not reproduce the
+    failure. ``F`` is the seg2 re-scan's capacity; the host replays at
+    most one re-scan chunk."""
     from . import linear_torch as LT
     from .linear import kernel_slots
 
@@ -89,9 +103,15 @@ def reconstruct(mm: MemoizedModel, packed: PackedHistory,
     sizes = {"n_states": mm.n_states, "n_transitions": mm.n_transitions}
     boundary = _kernel_boundary(mm, segs, kernel_slots(P_eff), sizes,
                                 device)
-    if boundary is None:
-        return None
-    raw_cfgs, done, fail_seg = boundary
+    if boundary is not None:
+        raw_cfgs, done, fail_seg = boundary
+    else:
+        Pe = max(P_eff, 1)
+        boundary = _seg2_boundary(mm, segs, max(Pe + (Pe & 1), 2), Pe,
+                                  sizes, F, device)
+        if boundary is None:
+            return None
+        raw_cfgs, done, fail_seg = boundary
     boundary_cfgs = _unmap_configs(
         raw_cfgs, owners[done - 1] if done > 0 else (), P)
 
@@ -126,6 +146,37 @@ def _kernel_boundary(mm, segs, P_k: int, sizes, device):
     spec = SK.spec_for(sizes["n_states"], sizes["n_transitions"], P_k,
                        segs.inv_proc.shape[1])
     return SK.decode_frontier(spec, ws, P_k), done, fail_seg
+
+
+def _seg2_boundary(mm, segs, P2: int, Pe: int, sizes, F: int, device,
+                   chunk: int = 2048):
+    """The seg2 engine's chunked scan at capacity ``F``: returns
+    ``(boundary_configs, done, fail_seg)`` from the carry at the last
+    chunk boundary before the failure, or None when the scan does not
+    reproduce the INVALID (an UNKNOWN is not decodable)."""
+    from . import linear_torch as LT
+    from .linear import _pad_chunk
+
+    dev = LT.engine_device(None, device)
+    succ = LT.as_tensor(LT.pad_succ(mm.succ, _next_pow2(mm.succ.shape[0]),
+                                    _next_pow2(mm.succ.shape[1])), dev)
+    S = segs.ok_proc.shape[0]
+    chunk = max(_next_pow2(min(chunk, max(S, 1))), 64)
+    carry = LT.init_seg_carry(F, P2, dev)
+    done = 0
+    while done < S:
+        end = min(done + chunk, S)
+        carry2 = LT.check_device_seg2_chunk(
+            succ, *_pad_chunk(segs, done, end, chunk), done, carry, F=F,
+            Fs=32, P=P2, **sizes)
+        if carry2[4] == LT.INVALID:
+            # ``carry`` still holds the boundary BEFORE the failing chunk
+            return _carry_configs(carry, Pe), done, carry2[5]
+        if carry2[4] != LT.VALID:
+            return None
+        carry = carry2
+        done = end
+    return None
 
 
 def _op_desc(packed: PackedHistory, q: int, t: int) -> dict:

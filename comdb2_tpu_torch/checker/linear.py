@@ -5,13 +5,16 @@ Pipeline (mirroring the reference's): ``complete`` → ``index`` → pack →
 ``memo`` → frontier search → decoded verdict. Small histories run on the
 host engine (the analog of staying single-threaded below the reference's
 128-config pmap threshold, ``linear.clj:214-216``); larger ones run the
-segment-search kernel (:mod:`.seg_kernel`), whose frontier holds 128
-configs: more is an overflow and the verdict is ``:unknown``, like the
-reference's low-memory abort (``linear.clj:318-326``).
+device engine ladder:
 
-Not ported yet (the JAX package escalates instead): shapes the
-kernel's gate rejects raise :class:`EngineNotPorted`, and a kernel
-overflow is reported as UNKNOWN with no wider engine tried.
+1. the segment-search kernel (:mod:`.seg_kernel`, frontier 128);
+2. on its overflow, or when its gate rejects the shape: the MXU
+   frontier engine (:mod:`.mxu`) for wide P, else the seg2 capacity
+   ladder (:func:`.linear_torch.check_device_seg2`) over
+   ``capacities``.
+
+Overflow at the last capacity yields ``:unknown``, like the
+reference's low-memory abort (``linear.clj:318-326``).
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ UNKNOWN = "unknown"
 
 
 class EngineNotPorted(NotImplementedError):
-    """The history needs an engine the port does not have yet (the
-    kernel's gate rejects its shape)."""
+    """The caller asked for an engine the port does not have yet (the
+    batch path's ``flat`` / ``vmap`` engines and mesh routes)."""
 
 
 @dataclass
@@ -63,6 +66,7 @@ class Analysis:
 def analysis(model: Model,
              history: Union[Sequence[Op], PackedHistory],
              backend: str = "auto",
+             capacities: Sequence[int] = (256, 1024, 8192, 65536),
              host_threshold: int = 128,
              max_states: int = 1 << 20,
              max_host_configs: int = 1 << 22,
@@ -72,13 +76,18 @@ def analysis(model: Model,
     """Check ``history`` against ``model`` for linearizability.
 
     backend: "auto" | "host" | "device".
+    capacities: frontier sizes the seg2 ladder tries in order after the
+    kernel; overflow escalates, overflow at the last yields :unknown.
+    The MXU arm (wide P) buckets each entry up to its own rung set
+    (``mxu.CAPACITIES``).
     device: where the device search runs; ``None`` means ``cuda``, and
-    raises when CUDA is absent. ``"cpu"`` runs the kernel's plain
-    PyTorch version.
+    raises when CUDA is absent. ``"cpu"`` runs every engine on CPU
+    tensors, the kernel as its plain PyTorch version.
     progress: optional callback ``progress(done_segments,
-    total_segments, frontier_count, stats)`` invoked between kernel
-    launches at roughly ``progress_interval_s`` cadence — the role of
-    the reference's 5-second reporter threads (``linear.clj:273-297``).
+    total_segments, frontier_count, stats)`` invoked between device
+    chunks at roughly ``progress_interval_s`` cadence — the role of the
+    reference's 5-second reporter threads (``linear.clj:273-297``).
+    ``stats`` holds ``visited_per_s``, ``segs_per_s`` and ``est_cost``.
     When given, the device path runs chunked.
     """
     dev = resolve_device(device)
@@ -98,7 +107,8 @@ def analysis(model: Model,
 
     if backend == "host" or (backend == "auto" and n < host_threshold):
         return _analyze_host(mm, packed, max_host_configs, t0)
-    return _analyze_device(mm, packed, t0, dev, progress=progress,
+    return _analyze_device(mm, packed, capacities, t0, dev,
+                           progress=progress,
                            progress_interval_s=progress_interval_s)
 
 
@@ -129,6 +139,16 @@ def _analyze_host(mm: MemoizedModel, packed: PackedHistory,
                     configs=cfgs, info=info)
 
 
+# histories with more padded segments than this run the chunked seg2
+# engine (one host round trip per chunk, and in-place escalation)
+CHUNKED_S_THRESHOLD = 4096
+
+#: the JAX package's engine names -> the port's (the kernel runs as its
+#: plain version, ``seg-reference``, on CPU tensors: see engine_name)
+REFERENCE_ENGINES = {"pallas-fused": "cuda-seg", "xla-seg2": "torch-seg2",
+                     "mxu-frontier": "mxu-frontier"}
+
+
 def engine_name(device) -> str:
     """``cuda-seg`` for the CUDA kernel; ``seg-reference`` for its
     plain PyTorch version (CPU tensors)."""
@@ -145,13 +165,31 @@ def kernel_slots(P_eff: int) -> int:
     return P2 if P2 <= 7 else P
 
 
+def _pad_chunk(segs, done: int, end: int, chunk: int):
+    """Segments ``[done, end)`` padded with dead segments to ``chunk``."""
+    import numpy as np
+
+    pad = chunk - (end - done)
+    return (np.pad(segs.inv_proc[done:end], ((0, pad), (0, 0)),
+                   constant_values=-1),
+            np.pad(segs.inv_tr[done:end], ((0, pad), (0, 0))),
+            np.pad(segs.ok_proc[done:end], (0, pad), constant_values=-1),
+            np.pad(segs.depth[done:end], (0, pad)))
+
+
 @_obs.traced("linear.device")
-def _analyze_device(mm: MemoizedModel, packed: PackedHistory, t0: float,
-                    device, progress=None,
+def _analyze_device(mm: MemoizedModel, packed: PackedHistory,
+                    capacities: Sequence[int], t0: float, device,
+                    progress=None,
                     progress_interval_s: float = 5.0) -> Analysis:
     from . import linear_torch as LT
+    from . import mxu as MXU
     from . import seg_kernel as SK
 
+    # the padded successor table goes to the device once — chunked runs
+    # and capacity escalation reuse it
+    succ = LT.as_tensor(LT.pad_succ(mm.succ, _next_pow2(mm.succ.shape[0]),
+                                    _next_pow2(mm.succ.shape[1])), device)
     segs = LT.make_segments(packed)
     s_real = segs.ok_proc.shape[0]
     segs = LT.make_segments(
@@ -167,30 +205,98 @@ def _analyze_device(mm: MemoizedModel, packed: PackedHistory, t0: float,
                   "n_states": mm.n_states,
                   "n_transitions": mm.n_transitions,
                   "effective_slots": P}
+    sizes = {"n_states": mm.n_states, "n_transitions": mm.n_transitions}
+    # the engines' slot axis: the next even value (candidate rows scale
+    # with P, so pow2 padding would cost up to ~25% extra work)
+    P2 = max(P + (P & 1), 2)
+    # the kernel first: the whole segment loop in one launch, frontier
+    # fixed at 128. None = its gate rejects the shape (P > 15, K > 8,
+    # table over 8192 entries, keys wider than 3 words)
     P_k = kernel_slots(P)
-    sizes = dict(n_states=mm.n_states, n_transitions=mm.n_transitions,
-                 P=P_k, device=device)
+    ksizes = dict(sizes, P=P_k, device=device)
     if progress is None:
-        r = SK.check_device_seg_kernel(mm.succ, segs, **sizes)
+        r = SK.check_device_seg_kernel(mm.succ, segs, **ksizes)
     else:
         r = SK.check_device_seg_kernel_chunked(
             mm.succ, segs, progress=progress,
             progress_interval_s=progress_interval_s, s_real=s_real,
-            **sizes)
-    if r is None:
-        raise EngineNotPorted(
-            f"segment-search kernel does not serve this shape (P={P_k}, "
-            f"K={segs.inv_proc.shape[1]}, table={mm.n_states}x"
-            f"{mm.n_transitions}); the escalation engines are not "
-            "ported yet")
-    status, fail_seg, n_final = r
-    engine = engine_name(device)
-    info["engine"] = engine
-    info["frontier_capacity"] = SK.F
-    if status == LT.UNKNOWN:
-        # no wider engine is ported: record the attempt so the
-        # artifact tells an overflow apart from a verdict
-        _note_tried(info, engine, SK.F)
+            **ksizes)
+    if r is not None:
+        status, fail_seg, n_final = r
+        info["engine"] = engine_name(device)
+        info["frontier_capacity"] = SK.F
+        if status != LT.UNKNOWN:
+            info["time_s"] = _obs.monotonic() - t0
+            return _device_verdict(mm, packed, segs, status, fail_seg,
+                                   n_final, info, device)
+        # kernel overflow: record the attempt, then escalate — the
+        # artifact says which engine produced the verdict and what was
+        # tried on the way
+        _note_tried(info, engine_name(device), SK.F)
+
+    # wide P with bounded in-flight rides the MXU frontier engine, whose
+    # ladder tops out at 2x the seg2 ladder's
+    if MXU.serves(mm.n_states, mm.n_transitions, P2):
+        return _analyze_mxu(mm, packed, segs, succ, P2, t0, info, device,
+                            capacities=capacities, progress=progress,
+                            progress_interval_s=progress_interval_s,
+                            s_real=s_real)
+
+    # the seg2 ladder; each segment first runs at the small tier Fs and
+    # escalates to F on overflow
+    info["engine"] = "torch-seg2"
+    Fs = 32
+    chunked = (progress is not None
+               or segs.ok_proc.shape[0] > CHUNKED_S_THRESHOLD)
+    if not chunked:
+        for F in capacities:
+            status, fail_seg, n_final = LT.check_device_seg2(
+                succ, segs.inv_proc, segs.inv_tr, segs.ok_proc,
+                segs.depth, F=F, Fs=Fs, P=P2, **sizes)
+            info["frontier_capacity"] = F
+            if status != LT.UNKNOWN:
+                break
+    else:
+        # chunked, with IN-PLACE capacity escalation: an overflow
+        # re-runs only the overflowing chunk from the boundary carry
+        # widened to the next capacity
+        S = segs.ok_proc.shape[0]
+        chunk = max(_next_pow2(min(S, 2048)), 64)
+        cap_ix = 0
+        F = capacities[cap_ix]
+        carry = LT.init_seg_carry(F, P2, device)
+        t_run = _obs.monotonic()
+        last = t_run
+        done = 0
+        visited = 0
+        while done < S:
+            end = min(done + chunk, S)
+            new_carry = LT.check_device_seg2_chunk(
+                succ, *_pad_chunk(segs, done, end, chunk), done, carry,
+                F=F, Fs=Fs, P=P2, **sizes)
+            st = new_carry[4]
+            if st == LT.UNKNOWN and cap_ix + 1 < len(capacities):
+                cap_ix += 1
+                F = capacities[cap_ix]
+                carry = LT.expand_seg_carry(carry, F)
+                continue            # same chunk, wider frontier
+            carry = new_carry
+            visited += carry[3] * (end - done)
+            done = end
+            if st != LT.VALID:
+                break
+            now = _obs.monotonic()
+            if progress is not None and now - last >= progress_interval_s:
+                hist = LT.pending_histogram(carry[1], carry[2], P=P2)
+                el = max(now - t_run, 1e-9)
+                progress(min(done, s_real), s_real, carry[3],
+                         {"visited_per_s": visited / el,
+                          "segs_per_s": done / el,
+                          "est_cost": LT.estimated_cost_hist(
+                              hist.tolist())})
+                last = now
+        status, fail_seg, n_final = carry[4], carry[5], carry[3]
+        info["frontier_capacity"] = F
     info["time_s"] = _obs.monotonic() - t0
     return _device_verdict(mm, packed, segs, status, fail_seg, n_final,
                            info, device)
@@ -201,6 +307,84 @@ def _note_tried(info: dict, engine: str, capacity) -> None:
     entry names the engine and the frontier capacity it gave up at)."""
     info.setdefault("engines_tried", []).append(
         {"engine": engine, "frontier_capacity": capacity})
+
+
+@_obs.traced("linear.mxu")
+def _analyze_mxu(mm: MemoizedModel, packed: PackedHistory, segs, succ,
+                 P: int, t0: float, info: dict, device,
+                 capacities: Optional[Sequence[int]] = None,
+                 progress=None, progress_interval_s: float = 5.0,
+                 s_real: Optional[int] = None) -> Analysis:
+    """The MXU frontier engine's arm: capacity ladder over
+    ``mxu.CAPACITIES`` with the seg2 arm's chunked / in-place-escalation
+    discipline. Terminal for the shapes it serves: overflow past its top
+    rung is the UNKNOWN, attributed to this engine.
+
+    ``capacities`` (the caller's bound) buckets each entry UP to the
+    smallest rung that holds it, and the ladder runs only those rungs."""
+    from . import linear_torch as LT
+    from . import mxu as MXU
+
+    if capacities is None:
+        ladder = tuple(MXU.CAPACITIES)
+    else:
+        ladder = tuple(sorted({MXU.bucket_F(f) for f in capacities}))
+    info["engine"] = "mxu-frontier"
+    sizes = {"n_states": mm.n_states, "n_transitions": mm.n_transitions}
+    S = segs.ok_proc.shape[0]
+    if s_real is None:
+        s_real = S
+    chunked = (progress is not None or S > CHUNKED_S_THRESHOLD)
+    if not chunked:
+        for F in ladder:
+            status, fail_seg, n_final = MXU.check_device_mxu(
+                succ, segs.inv_proc, segs.inv_tr, segs.ok_proc,
+                segs.depth, F=F, P=P, **sizes)
+            info["frontier_capacity"] = F
+            if status != LT.UNKNOWN:
+                break
+    else:
+        chunk = max(_next_pow2(min(S, MXU.CHUNK)), 64)
+        cap_ix = 0
+        F = ladder[cap_ix]
+        carry = MXU.init_carry(1, F, P, device=device, **sizes)
+        t_run = _obs.monotonic()
+        last = t_run
+        done = 0
+        visited = 0
+        while done < S:
+            end = min(done + chunk, S)
+            new_carry = MXU.check_device_mxu_chunk(
+                succ, *_pad_chunk(segs, done, end, chunk), done, carry,
+                F=F, P=P, **sizes)
+            st = int(new_carry[3][0])
+            if st == LT.UNKNOWN and cap_ix + 1 < len(ladder):
+                cap_ix += 1
+                F = ladder[cap_ix]
+                carry = MXU.expand_carry(carry, F)
+                continue            # same chunk, wider frontier
+            carry = new_carry
+            visited += int(carry[2][0]) * (end - done)
+            done = end
+            if st != LT.VALID:
+                break
+            now = _obs.monotonic()
+            if progress is not None and now - last >= progress_interval_s:
+                hist = MXU.pending_histogram(carry[0], carry[1], P=P,
+                                             **sizes)
+                el = max(now - t_run, 1e-9)
+                progress(min(done, s_real), s_real, int(carry[2][0]),
+                         {"visited_per_s": visited / el,
+                          "segs_per_s": done / el,
+                          "est_cost": LT.estimated_cost_hist(
+                              hist.tolist())})
+                last = now
+        status, fail_seg, n_final = (int(carry[3][0]), int(carry[4][0]),
+                                     int(carry[2][0]))
+        info["frontier_capacity"] = F
+    info["time_s"] = _obs.monotonic() - t0
+    return _device_verdict(mm, packed, segs, status, fail_seg, n_final,
+                           info, device)
 
 
 def _device_verdict(mm, packed, segs, status, fail_seg, n_final,
@@ -219,7 +403,7 @@ def _device_verdict(mm, packed, segs, status, fail_seg, n_final,
         return Analysis(valid=UNKNOWN, op_index=fail_at,
                         info={**info, "cause": cause})
     # invalid: bounded counterexample reconstruction (the final-paths
-    # role, linear.clj:180-212) — kernel re-scan to the failing chunk,
+    # role, linear.clj:180-212) — device re-scan to the failing chunk,
     # host replay of at most one chunk from the boundary frontier, then
     # concrete failed linearization orders
     op_index = fail_at
@@ -228,7 +412,12 @@ def _device_verdict(mm, packed, segs, status, fail_seg, n_final,
     try:
         from . import counterexample as CE
 
-        ce = CE.reconstruct(mm, packed, device=device)
+        # F >= the verdict's capacity: a larger frontier cannot change
+        # an INVALID verdict (overflow would have been UNKNOWN); the
+        # seg2 re-scan tops out at 65536
+        ce = CE.reconstruct(mm, packed, device=device,
+                            F=max(256, min(info.get(
+                                "frontier_capacity", 256), 65536)))
         if ce is not None:
             cfgs = ce.configs
             op_index = ce.op_index

@@ -1,11 +1,26 @@
-"""Segment stream and shared constants of the device search.
+"""Segment stream, packing plans and the torch-op search engines.
 
-The counterpart of the JAX package's ``checker/linear_jax.py``. This
-module holds its host half: the status and slot constants, the
-per-ok segment stream (:func:`make_segments`), slot renaming
-(:func:`remap_slots`), successor-table padding and the search-cost
-estimate. The engines that consume a :class:`SegmentStream` live in
-:mod:`.seg_kernel`.
+The counterpart of the JAX package's ``checker/linear_jax.py``:
+
+- the host half: status and slot constants, the per-ok segment stream
+  (:func:`make_segments`), slot renaming (:func:`remap_slots`,
+  :func:`remap_slots_batch`), successor-table padding, the search-cost
+  estimates and the lossless multi-word :class:`PackPlan`;
+- the seg2 capacity engine (:func:`check_device_seg2`,
+  :func:`check_device_seg2_chunk`): the escalation ladder behind the
+  segment-search kernel, one history, frontier ``(states, slots,
+  valid)`` of capacity F with the Fs=32 small tier;
+- the keys engine (:func:`check_device_keys`): B histories, frontier
+  as ``(hi, lo)`` int32 key pairs, one per-block pair sort per closure
+  iteration (:mod:`.pair_sort`, a CUDA kernel on the card).
+
+XLA ran the engines outside any Pallas kernel, so here they are torch
+ops on the inputs' device: ``jnp.lexsort`` becomes successive stable
+sorts, least significant key first; ``.at[t].set(mode="drop")`` a
+scatter into one extra drop row that is sliced off; ``lax.scan`` a
+host loop over segments and ``lax.while_loop`` a loop bounded by
+``depth``. Each closure iteration reads one flag back to the host.
+The segment-search kernel itself lives in :mod:`.seg_kernel`.
 """
 
 from __future__ import annotations
@@ -15,14 +30,48 @@ import math
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 IDLE = -1
 LIN = -2
+
+# op kinds in the per-op step stream
+K_SKIP = 0     # fail/info completions, failing invokes, padding
+K_INVOKE = 1
+K_OK = 2
 
 # result status codes
 VALID = 0
 INVALID = 1
 UNKNOWN = 2    # frontier overflow
+
+
+class StepStream(NamedTuple):
+    """Per-op step metadata (see :func:`make_stream`)."""
+    kind: np.ndarray   # int32[n]
+    proc: np.ndarray   # int32[n]
+    tr: np.ndarray     # int32[n]
+
+
+def make_stream(packed, n_pad: Optional[int] = None) -> StepStream:
+    """A PackedHistory as the per-op step stream, padded with no-op
+    steps to ``n_pad``: non-failing invokes carry (process, transition),
+    oks their process."""
+    from ..ops.op import INVOKE, OK
+
+    n = len(packed)
+    n_pad = n_pad or n
+    t = np.asarray(packed.type)
+    inv = (t == INVOKE) & ~np.asarray(packed.fails, bool)
+    ok = t == OK
+    kind = np.zeros(n_pad, np.int32)
+    proc = np.zeros(n_pad, np.int32)
+    tr = np.zeros(n_pad, np.int32)
+    kind[:n][inv] = K_INVOKE
+    kind[:n][ok] = K_OK
+    proc[:n] = np.where(inv | ok, np.asarray(packed.process), 0)
+    tr[:n] = np.where(inv, np.asarray(packed.trans), 0)
+    return StepStream(kind, proc, tr)
 
 
 def estimated_cost(pending_counts) -> float:
@@ -31,6 +80,22 @@ def estimated_cost(pending_counts) -> float:
     config with n pending calls can spawn up to n·Γ(n+1) orders."""
     return float(sum(n * math.factorial(min(int(n), 12))
                      for n in pending_counts))
+
+
+def estimated_cost_hist(hist) -> float:
+    """:func:`estimated_cost` from a pending-count histogram
+    (``hist[k]`` = configs with k pending calls)."""
+    return float(sum(int(c) * k * math.factorial(min(k, 12))
+                     for k, c in enumerate(hist)))
+
+
+def pending_histogram(slots: torch.Tensor, valid: torch.Tensor, *,
+                      P: int) -> torch.Tensor:
+    """Per-config pending-call counts bucketed on the device: progress
+    telemetry reads back P+1 ints, not the (F, P) frontier."""
+    pend = (slots >= 0).sum(dim=1)
+    return torch.bincount(pend, weights=valid.to(torch.float64),
+                          minlength=P + 1)[:P + 1].to(torch.int64)
 
 
 def pad_succ(succ: np.ndarray, s_pad: Optional[int] = None,
@@ -42,6 +107,102 @@ def pad_succ(succ: np.ndarray, s_pad: Optional[int] = None,
     out = np.full((s_pad, t_pad), -1, np.int32)
     out[:S, :T] = succ
     return out
+
+
+def _greedy_split(widths):
+    """Simulate the packers' greedy fill (lo from the field list's end,
+    hi takes the rest); returns (lo_bits, hi_bits). Fields never
+    straddle words, so the budget is checked per word."""
+    lo_bits = 0
+    i = len(widths) - 1
+    while i >= 0 and lo_bits + widths[i] <= 31:
+        lo_bits += widths[i]
+        i -= 1
+    return lo_bits, sum(widths[:i + 1])
+
+
+def pack_bits(n_states: int, n_transitions: int, P: int):
+    """Bit budget for packing one config (state + P slots) into two
+    int32 words: (state_bits, slot_bits, fits). Slot values live in
+    [-2, T), stored as slot+2; hi stays below bit 30 (the sentinel)."""
+    state_bits = max(int(np.ceil(np.log2(max(n_states, 2)))), 1)
+    slot_bits = max(int(np.ceil(np.log2(max(n_transitions + 2, 2)))), 1)
+    _, hi_bits = _greedy_split([state_bits] + [slot_bits] * P)
+    fits = hi_bits <= 29 and state_bits <= 29 and slot_bits <= 29
+    return state_bits, slot_bits, fits
+
+
+class PackPlan(NamedTuple):
+    """Exact lossless packing of one config (state + P slots) into
+    ``n_words`` int32 sort keys. ``assign[i]`` is the (word, shift) of
+    field i, fields = [state, slot_0, .., slot_{P-1}], filled greedily
+    from the END of the list into word 0 (least significant), then word
+    1, ... Words hold <= 31 bits; the TOP word keeps bits 29/30 free
+    for the okp-order flag and the invalid sentinel."""
+    state_bits: int
+    slot_bits: int
+    P: int
+    assign: tuple          # ((word, shift), ...) per field
+    n_words: int
+
+
+def make_pack_plan(n_states: int, n_transitions: int,
+                   P: int) -> Optional[PackPlan]:
+    """The multi-word plan, or None when a single field exceeds 29
+    bits (then only the full row lexsort is exact)."""
+    state_bits = max(int(np.ceil(np.log2(max(n_states, 2)))), 1)
+    slot_bits = max(int(np.ceil(np.log2(max(n_transitions + 2, 2)))), 1)
+    widths = [state_bits] + [slot_bits] * P
+    if max(widths) > 29:
+        return None
+    assign: list = [None] * len(widths)
+    word, used = 0, 0
+    for i in range(len(widths) - 1, -1, -1):
+        if used + widths[i] > 31:
+            word, used = word + 1, 0
+        assign[i] = (word, used)
+        used += widths[i]
+    if used > 29:
+        word += 1              # flags get a fresh top word
+    return PackPlan(state_bits, slot_bits, P, tuple(assign), word + 1)
+
+
+def _pack_plan_words(states, slots, plan: PackPlan):
+    """Pack each config row into ``plan.n_words`` int32 words (word 0
+    least significant)."""
+    fields = [states] + [slots[:, q] + 2 for q in range(plan.P)]
+    words = [torch.zeros_like(states) for _ in range(plan.n_words)]
+    for f, (w, sh) in zip(fields, plan.assign):
+        words[w] = words[w] | (f << sh)
+    return words
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the first axis through ``index_select``: the
+    same result, without advanced indexing's per-call thread fan-out,
+    which costs milliseconds per gather on a busy multi-core host."""
+    return x.index_select(0, idx)
+
+
+def _lexsort(keys) -> torch.Tensor:
+    """``jnp.lexsort``: the permutation ordering rows by ``keys``, the
+    LAST key primary, as successive stable sorts from the first (least
+    significant) key on."""
+    order = None
+    for k in keys:
+        kk = k if order is None else take(k, order)
+        idx = torch.sort(kk, stable=True).indices
+        order = idx if order is None else take(order, idx)
+    return order
+
+
+def _word_keys(words):
+    """Non-negative 31-bit words (least significant first) folded in
+    pairs into int64 keys that order exactly like the words — half the
+    stable sorts of :func:`_lexsort`."""
+    w64 = [w.to(torch.int64) for w in words]
+    return [w64[i] | (w64[i + 1] << 31) if i + 1 < len(w64) else w64[i]
+            for i in range(0, len(w64), 2)]
 
 
 class SegmentStream(NamedTuple):
@@ -217,3 +378,604 @@ def remap_slots(segs: SegmentStream, with_maps: bool = False):
                 pos[s, :len(row)] = row
         return segs2, P_eff, pos
     return segs2, P_eff
+
+
+def remap_slots_batch(streams):
+    """Batched :func:`remap_slots` over many SegmentStreams at once —
+    the batch ingest path's form (``checker.batch._stream_segments``).
+    Returns ``(streams', p_effs)`` with outputs BIT-IDENTICAL to
+    per-history ``remap_slots``.
+
+    The loop runs over SEGMENT POSITIONS with all histories as one
+    vector lane each: state is a (B, n_procs) slot map plus a (B, P)
+    in-use mask. The lowest-free rule maps onto ``argmax(~used)``
+    exactly: slots are allocated contiguously, so the smallest unused
+    index is min(free heap) when the heap is non-empty and the fresh
+    index otherwise."""
+    B = len(streams)
+    if B == 0:
+        return [], []
+    S_max = max(s.ok_proc.shape[0] for s in streams)
+    K_max = max(s.inv_proc.shape[1] for s in streams)
+    if S_max == 0 or all(int(s.ok_proc.shape[0]) == 0 for s in streams):
+        return list(streams), [0] * B
+    ip = np.full((B, S_max, K_max), -1, np.int32)
+    okp = np.full((B, S_max), -1, np.int32)
+    for b, s in enumerate(streams):
+        sb, kb = s.inv_proc.shape
+        ip[b, :sb, :kb] = s.inv_proc
+        okp[b, :sb] = s.ok_proc
+    npc = int(max(ip.max(initial=-1), okp.max(initial=-1), 0)) + 1
+    slot_of = np.full((B, max(npc, 1)), -1, np.int32)
+    # conservative live-slot bound (every ok treated as a release);
+    # unmatched-ok edge allocations can exceed it — grown on demand
+    opens = np.cumsum((ip >= 0).sum(axis=2), axis=1)
+    rel = np.cumsum(okp >= 0, axis=1)
+    p_cap = int(max((opens[:, 1:] - rel[:, :-1]).max(initial=0),
+                    opens[:, 0].max(initial=0), 1)) + 1
+    used = np.zeros((B, p_cap), bool)
+    n_slots = np.zeros(B, np.int32)
+    out_ip = ip.copy()
+    out_ok = okp.copy()
+    bidx = np.arange(B)
+    for s in range(S_max):
+        for k in range(K_max):
+            p = ip[:, s, k]
+            m = p >= 0
+            if not m.any():
+                continue
+            pc = np.where(m, p, 0)
+            if np.any(m & (slot_of[bidx, pc] >= 0)):
+                b = int(np.flatnonzero(m & (slot_of[bidx, pc] >= 0))[0])
+                raise ValueError(
+                    f"process {int(p[b])} invokes in segment {s} while "
+                    "an earlier invocation is still open")
+            while np.any(m & used.all(axis=1)):
+                used = np.pad(used, ((0, 0), (0, used.shape[1])))
+            sl = np.argmax(~used, axis=1).astype(np.int32)
+            out_ip[m, s, k] = sl[m]
+            used[bidx[m], sl[m]] = True
+            slot_of[bidx[m], pc[m]] = sl[m]
+            n_slots = np.maximum(n_slots, np.where(m, sl + 1, 0))
+        o = okp[:, s]
+        m = o >= 0
+        if not m.any():
+            continue
+        oc = np.where(m, o, 0)
+        sl = slot_of[bidx, oc]
+        matched = m & (sl >= 0)
+        out_ok[matched, s] = sl[matched]
+        used[bidx[matched], sl[matched]] = False
+        slot_of[bidx[matched], oc[matched]] = -1
+        un = m & ~matched
+        if un.any():
+            # ok with no open invocation: any free slot is IDLE in
+            # every config — reference one (fresh if none), leaving it
+            # free, exactly like the per-history path
+            while np.any(un & used.all(axis=1)):
+                used = np.pad(used, ((0, 0), (0, used.shape[1])))
+            fs = np.argmax(~used, axis=1).astype(np.int32)
+            out_ok[un, s] = fs[un]
+            n_slots = np.maximum(n_slots, np.where(un, fs + 1, 0))
+    out = []
+    for b, s in enumerate(streams):
+        sb, kb = s.inv_proc.shape
+        out.append(SegmentStream(
+            np.ascontiguousarray(out_ip[b, :sb, :kb]), s.inv_tr,
+            np.ascontiguousarray(out_ok[b, :sb]),
+            s.seg_index, s.depth))
+    return out, [int(x) for x in n_slots]
+
+
+# --- device helpers ----------------------------------------------------------
+
+def engine_device(succ, device=None) -> torch.device:
+    """The device an engine runs on: ``device`` when given, else the
+    successor table's when it is a tensor, else ``cuda`` (which raises
+    on a host without a card)."""
+    from ..utils import resolve_device
+
+    if device is not None:
+        return resolve_device(device)
+    if isinstance(succ, torch.Tensor):
+        return succ.device
+    return resolve_device(None)
+
+
+def as_tensor(a, device, dtype=torch.int32) -> torch.Tensor:
+    """``a`` (array or tensor) as a ``dtype`` tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).to(
+        device=device, dtype=dtype)
+
+
+def _bits_for(n_states, n_transitions, P):
+    """Static :class:`PackPlan` for the multi-word packed dedup, or
+    None (-> full row lexsort) when the true memo sizes are unknown or
+    a single field won't fit a word."""
+    if n_states is None or n_transitions is None:
+        return None
+    return make_pack_plan(n_states, n_transitions, P)
+
+
+def _first_true_then_rest(keep: torch.Tensor) -> torch.Tensor:
+    """``argsort(~keep, stable=True)``: the kept rows in order, then
+    the others in order."""
+    return torch.cat([torch.nonzero(keep).flatten(),
+                      torch.nonzero(~keep).flatten()])
+
+
+# --- seg2: the single-history capacity engine ---------------------------------
+
+def _dedup_compact(states, slots, valid, F, plan=None, okp=None):
+    """Sort rows into an exact order (valid first) so identical configs
+    are adjacent; drop duplicates. Returns ``(states[F], slots[F, P],
+    valid[F], n_unique, overflow)``; the first ``min(n, F)`` rows are
+    the unique configs in sort order, the rest are don't-care.
+
+    With a :class:`PackPlan` rows pack losslessly into ``plan.n_words``
+    words (the sort keys); otherwise the full row is the key. ``okp``
+    orders rows whose slot ``okp`` is linearized BEFORE the others, so
+    the post-ok survivors are a prefix (the small tier relies on it).
+    Invalid rows only need to sort after every valid one: their other
+    words are zeroed, which keeps every key a non-negative 31-bit word."""
+    pad = torch.zeros(1, dtype=torch.bool, device=valid.device)
+    if okp is not None:
+        not_ret = (slots[:, okp] != LIN).to(torch.int32)
+    if plan is not None:
+        words = _pack_plan_words(states, slots, plan)
+        top = words[-1]
+        if okp is not None:
+            # the top word stays < 2^29 by the plan budget; bit 29 is
+            # free and below the invalid sentinel (1 << 30)
+            top = top | (not_ret << 29)
+        top = torch.where(valid, top, 1 << 30)
+        words = [torch.where(valid, w, 0) for w in words[:-1]] + [top]
+        order = _lexsort(_word_keys(words))
+        ws = [take(w, order) for w in words]
+        va = take(valid, order)
+        eq = ws[0][1:] == ws[0][:-1]
+        for w in ws[1:]:
+            eq = eq & (w[1:] == w[:-1])
+        same = torch.cat([pad, eq & va[:-1]])
+    else:
+        # full lexsort: last key primary — valid rows first, row order
+        P = slots.shape[1]
+        keys = [slots[:, q] for q in range(P - 1, -1, -1)] + [states]
+        if okp is not None:
+            keys.append(not_ret)
+        keys.append((~valid).to(torch.int32))
+        order = _lexsort(keys)
+        st0, sl0, va = (take(states, order), take(slots, order),
+                        take(valid, order))
+        same = torch.cat([pad, (st0[1:] == st0[:-1])
+                          & (sl0[1:] == sl0[:-1]).all(dim=1)
+                          & va[:-1]])
+    keep = va & ~same
+    n = int(keep.sum())
+    order2 = _first_true_then_rest(keep)[:F]
+    sel = take(order, order2)
+    return (take(states, sel), take(slots, sel), take(keep, order2), n,
+            n > F)
+
+
+def _expand(succ, states, slots, valid):
+    """One linearization step applied to every (config, pending call):
+    F*P candidate rows. Indices are clamped into the table: only
+    invalid rows hold out-of-range states, and their candidates are
+    invalid."""
+    F, P = slots.shape
+    calling = slots >= 0
+    st = states.clamp(0, succ.shape[0] - 1).long()
+    s2 = succ[st[:, None], slots.clamp(0, succ.shape[1] - 1).long()]
+    cand_valid = (valid[:, None] & calling & (s2 >= 0)).reshape(F * P)
+    cand_slots = slots[:, None, :].expand(F, P, P).clone()
+    q = torch.arange(P, device=slots.device)
+    cand_slots[:, q, q] = LIN
+    return s2.reshape(F * P), cand_slots.reshape(F * P, P), cand_valid
+
+
+def _closure(succ, states, slots, valid, n_valid, F, P, plan,
+             max_iter=None, okp=None):
+    """Fixed point of single-call linearization with dedup. The first
+    iteration always runs; more run while the frontier grows, nothing
+    overflowed and fewer than ``max_iter`` (the pending depth, default
+    P+1) ran. Returns ``(states, slots, valid, n, overflow)``."""
+    if max_iter is None:
+        max_iter = P + 1
+
+    def body(st, sl, va):
+        c_st, c_sl, c_va = _expand(succ, st, sl, va)
+        return _dedup_compact(torch.cat([st, c_st]),
+                              torch.cat([sl, c_sl]),
+                              torch.cat([va, c_va]), F, plan=plan,
+                              okp=okp)
+
+    st, sl, va, n, ovf = body(states, slots, valid)
+    changed, it = n > n_valid, 1
+    while changed and not ovf and it < max_iter:
+        st, sl, va, n2, ovf = body(st, sl, va)
+        changed, n, it = n2 > n, n2, it + 1
+    return st, sl, va, n, ovf
+
+
+def init_seg_carry(F: int, P: int, device=None):
+    """Initial carry ``(states, slots, valid, n, status, fail)`` of the
+    chunked segmented search: one empty config. The frontier lives on
+    ``device``; the scalars are host ints."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    states = torch.zeros(F, dtype=torch.int32, device=dev)
+    slots = torch.full((F, P), IDLE, dtype=torch.int32, device=dev)
+    valid = torch.zeros(F, dtype=torch.bool, device=dev)
+    valid[0] = True
+    return (states, slots, valid, 1, VALID, -1)
+
+
+def expand_seg_carry(carry, F_new: int):
+    """Widen a GOOD chunk-boundary carry to a larger frontier capacity:
+    in-place escalation resumes the search at the overflowing chunk
+    instead of restarting the whole history. Status/fail are reset —
+    the carry must come from before the overflow."""
+    states, slots, valid, count, _status, _fail = carry
+    pad = F_new - states.shape[0]
+    if pad < 0:
+        raise ValueError("carry wider than target capacity")
+    states = torch.nn.functional.pad(states, (0, pad))
+    slots = torch.nn.functional.pad(slots, (0, 0, 0, pad), value=IDLE)
+    valid = torch.nn.functional.pad(valid, (0, pad))
+    return (states, slots, valid, count, VALID, -1)
+
+
+def _seg2_tier(Fs, F):
+    """Small-tier capacity actually used: None (big-only) when the
+    requested tier can't sit strictly below F."""
+    return Fs if (Fs is not None and 0 < Fs < F) else None
+
+
+def _seg_step(succ, carry, inv, tr, okp, sidx, depth, F, P, plan, Fs):
+    """One segment: invokes, closure (small tier first when ``Fs``),
+    ok filter. A dead segment or a decided history passes through."""
+    states, slots, valid, n, status, fail_at = carry
+    if status != VALID or okp < 0:
+        return carry
+    sl = slots.clone()
+    for p, t in zip(inv, tr):
+        if p >= 0:
+            sl[:, p] = t
+    kw = dict(max_iter=depth, okp=okp)
+    small = None
+    if Fs is not None and n <= Fs:
+        # the small tier: valid configs form a contiguous prefix, so
+        # the first Fs rows hold the whole frontier
+        small = _closure(succ, states[:Fs], sl[:Fs], valid[:Fs], n, Fs,
+                         P, plan, **kw)
+    if small is not None and not small[4]:
+        pad_f = F - Fs
+        st = torch.nn.functional.pad(small[0], (0, pad_f))
+        sl2 = torch.nn.functional.pad(small[1], (0, 0, 0, pad_f))
+        va = torch.nn.functional.pad(small[2], (0, pad_f))
+        ovf = False
+    else:
+        st, sl2, va, _, ovf = _closure(succ, states, sl, valid, n, F, P,
+                                       plan, **kw)
+    returned = va & (sl2[:, okp] == LIN)
+    sl3 = sl2.clone()
+    sl3[:, okp] = IDLE
+    n2 = int(returned.sum())
+    st_new = UNKNOWN if ovf else (INVALID if n2 == 0 else VALID)
+    return (st, sl3, returned, n2, st_new,
+            fail_at if st_new == VALID else sidx)
+
+
+def _seg_scan(succ, inv_proc, inv_tr, ok_proc, depth, seg_offset, carry,
+              F, P, plan, Fs):
+    inv = np.asarray(inv_proc).tolist()
+    trs = np.asarray(inv_tr).tolist()
+    oks = np.asarray(ok_proc).tolist()
+    dps = np.asarray(depth).tolist()
+    for i in range(len(oks)):
+        if carry[4] != VALID:
+            break              # every later segment passes through
+        carry = _seg_step(succ, carry, inv[i], trs[i], oks[i],
+                          seg_offset + i, dps[i], F, P, plan, Fs)
+    return carry
+
+
+def check_device_seg2(succ, inv_proc, inv_tr, ok_proc, depth, *, F: int,
+                      P: int, Fs: int = 32, n_states=None,
+                      n_transitions=None, device=None):
+    """Adaptive segmented search of one history: each segment's closure
+    first runs at the small capacity ``Fs`` and escalates to ``F`` on
+    overflow. Returns ``(status, fail_segment, n)`` as ints."""
+    dev = engine_device(succ, device)
+    succ_t = as_tensor(succ, dev)
+    carry = _seg_scan(succ_t, inv_proc, inv_tr, ok_proc, depth, 0,
+                      init_seg_carry(F, P, dev), F, P,
+                      _bits_for(n_states, n_transitions, P),
+                      _seg2_tier(Fs, F))
+    return carry[4], carry[5], carry[3]
+
+
+def check_device_seg2_chunk(succ, inv_proc, inv_tr, ok_proc, depth,
+                            seg_offset, carry, *, F: int, P: int,
+                            Fs: int = 32, n_states=None,
+                            n_transitions=None, device=None):
+    """One chunk of the adaptive search: consumes ``carry`` (from
+    :func:`init_seg_carry`, :func:`expand_seg_carry` or a previous
+    chunk) and returns the updated carry. ``seg_offset`` biases the
+    segment indices recorded as the fail segment."""
+    dev = engine_device(succ, device)
+    return _seg_scan(as_tensor(succ, dev), inv_proc, inv_tr, ok_proc,
+                     depth, int(seg_offset), carry, F, P,
+                     _bits_for(n_states, n_transitions, P),
+                     _seg2_tier(Fs, F))
+
+
+# --- keys: B histories, (hi, lo) key-pair frontier ----------------------------
+#
+# Field layout, LSB->MSB: slot_0 .. slot_{P-1}, state, invalid, batch —
+# split across lo (bits 0..30) then hi. Slot values: 0 = linearized
+# (LIN), 1 = idle (IDLE), t+2 = pending transition t. No field crosses
+# the word boundary; every mutation keeps a field in range, so a
+# negative delta (shifted into place in two's complement) never
+# borrows into its neighbour.
+
+class KeyLayout:
+    """Static (word, shift) assignment for each field."""
+
+    def __init__(self, B: int, n_states: int, n_transitions: int,
+                 P: int):
+        self.P = P
+        self.slot_bits = max(int(np.ceil(
+            np.log2(max(n_transitions + 2, 2)))), 1)
+        self.state_bits = max(int(np.ceil(
+            np.log2(max(n_states, 2)))), 1)
+        self.batch_bits = max(int(np.ceil(np.log2(max(B, 2)))), 1)
+        fields = ([("slot", q, self.slot_bits) for q in range(P)]
+                  + [("state", 0, self.state_bits),
+                     ("invalid", 0, 1),
+                     ("batch", 0, self.batch_bits)])
+        self.pos = {}
+        word, shift = 0, 0
+        for name, idx, width in fields:
+            if shift + width > 31:
+                word, shift = word + 1, 0
+            if width > 31 or word > 1:
+                self.fits = False
+                return
+            self.pos[(name, idx)] = (word, shift)
+            shift += width
+        self.fits = True
+
+    def get(self, hi, lo, name, idx=0):
+        word, shift = self.pos[(name, idx)]
+        width = {"slot": self.slot_bits, "state": self.state_bits,
+                 "invalid": 1, "batch": self.batch_bits}[name]
+        src = lo if word == 0 else hi
+        return (src >> shift) & ((1 << width) - 1)
+
+    def add(self, hi, lo, name, idx, delta):
+        """Add a (possibly negative, data-dependent) delta to a field."""
+        word, shift = self.pos[(name, idx)]
+        if word == 0:
+            return hi, lo + (delta << shift)
+        return hi + (delta << shift), lo
+
+    def slot_dynamic(self, hi, lo, p):
+        """Extract slot p where p is a per-row tensor."""
+        out = torch.zeros_like(lo)
+        for q in range(self.P):
+            out = torch.where(p == q, self.get(hi, lo, "slot", q), out)
+        return out
+
+    def add_slot_dynamic(self, hi, lo, p, delta):
+        for q in range(self.P):
+            h2, l2 = self.add(hi, lo, "slot", q, delta)
+            hi = torch.where(p == q, h2, hi)
+            lo = torch.where(p == q, l2, lo)
+        return hi, lo
+
+
+def _batch_contig_perm(B, F, R, device=None):
+    """Row permutation gathering each batch's rows (frontier + P
+    candidate chunks, each F-blocked per batch) into contiguous
+    (B, R) blocks."""
+    idx = torch.arange(B * R, device=device)
+    b = idx // R
+    rem = idx % R
+    c = rem // F
+    r = rem % F
+    return c * (B * F) + b * F + r
+
+
+def _k_dedup(hi, lo, valid, inv_hi, inv_lo, B, F):
+    """Sort keys (invalid rows replaced by their batch's sentinel so
+    they stay in their block), dedup adjacent, compact per batch.
+
+    The batch field is the most significant, so a global sort is the
+    per-batch block sorts side by side: gather each batch's rows into
+    a block, pad the block to a power of two with its own sentinel
+    (sentinels sort to the block's tail and are cut off again), and
+    sort every block with :func:`~.pair_sort.pair_sort`. Valid keys
+    never equal a sentinel (their invalid bit is clear), so validity
+    is recovered from the sorted values."""
+    from ..utils import next_pow2
+    from .pair_sort import pair_sort
+
+    R = hi.shape[0] // B
+    dev = hi.device
+    h = torch.where(valid, hi, inv_hi)
+    l = torch.where(valid, lo, inv_lo)
+    perm = _batch_contig_perm(B, F, R, dev)
+    hb = take(h, perm).reshape(B, R)
+    lb = take(l, perm).reshape(B, R)
+    sent_h = inv_hi[:B * F].reshape(B, F)[:, 0]
+    sent_l = inv_lo[:B * F].reshape(B, F)[:, 0]
+    R_pad = next_pow2(R)
+    if R_pad > R:
+        hb = torch.cat([hb, sent_h[:, None].expand(B, R_pad - R)], 1)
+        lb = torch.cat([lb, sent_l[:, None].expand(B, R_pad - R)], 1)
+    hs2, ls2 = pair_sort(hb.contiguous(), lb.contiguous())
+    hs = hs2[:, :R].reshape(-1)
+    ls = ls2[:, :R].reshape(-1)
+    va = ~((hs == sent_h.repeat_interleave(R))
+           & (ls == sent_l.repeat_interleave(R)))
+    pad = torch.zeros(1, dtype=torch.bool, device=dev)
+    same = torch.cat([pad, (hs[1:] == hs[:-1])
+                      & (ls[1:] == ls[:-1]) & va[:-1]])
+    keep = va & ~same
+    c = torch.cumsum(keep, 0)
+    e = c - keep.long()
+    row = torch.arange(hi.shape[0], device=dev)
+    block = row // R
+    base = e.reshape(B, R)[:, 0]
+    rank = e - base[block]
+    n_b = c.reshape(B, R)[:, -1] - base
+    target = torch.where(keep & (rank < F), block * F + rank, B * F)
+    out_hi = torch.zeros(B * F + 1, dtype=torch.int32, device=dev)
+    out_lo = torch.zeros(B * F + 1, dtype=torch.int32, device=dev)
+    out_hi[target] = hs          # every dropped row lands on B*F
+    out_lo[target] = ls
+    slot_row = torch.arange(B * F, device=dev)
+    n_min = torch.minimum(n_b, torch.full_like(n_b, F))
+    out_va = (slot_row % F) < n_min[slot_row // F]
+    return (out_hi[:B * F], out_lo[:B * F], out_va, n_min.to(torch.int32),
+            n_b > F)
+
+
+def _k_expand(succ, lay: KeyLayout, hi, lo, valid):
+    """Candidate keys: for each pending slot q, linearize it — set the
+    slot field to LIN (0) and step the state field. Table indices are
+    clamped: only invalid rows can hold out-of-range fields."""
+    s = lay.get(hi, lo, "state")
+    s_ix = s.clamp(0, succ.shape[0] - 1).long()
+    c_hi, c_lo, c_va = [], [], []
+    for q in range(lay.P):
+        tq = lay.get(hi, lo, "slot", q)
+        pending = tq >= 2
+        s2 = succ[s_ix, (tq - 2).clamp(0, succ.shape[1] - 1).long()]
+        ok = valid & pending & (s2 >= 0)
+        h2, l2 = lay.add(hi, lo, "slot", q, -tq)       # slot -> LIN
+        h2, l2 = lay.add(h2, l2, "state", 0, s2 - s)
+        c_hi.append(h2)
+        c_lo.append(l2)
+        c_va.append(ok)
+    return torch.cat(c_hi), torch.cat(c_lo), torch.cat(c_va)
+
+
+def _k_closure(succ, lay, hi, lo, valid, n_b, inv_hi_all, inv_lo_all,
+               B, F, max_iter=None):
+    """Batched closure: sticky per-batch overflow; iterates while any
+    batch grew or overflowed, at least once, at most ``max_iter``."""
+    if max_iter is None:
+        max_iter = lay.P + 1
+
+    def body(hi, lo, va, n, ovf_sticky):
+        c_hi, c_lo, c_va = _k_expand(succ, lay, hi, lo, va)
+        hi2, lo2, va2, n2, ovf = _k_dedup(
+            torch.cat([hi, c_hi]), torch.cat([lo, c_lo]),
+            torch.cat([va, c_va]), inv_hi_all, inv_lo_all, B, F)
+        changed = bool(((n2 > n) | ovf).any())
+        return hi2, lo2, va2, n2, ovf_sticky | ovf, changed
+
+    ovf0 = torch.zeros(B, dtype=torch.bool, device=hi.device)
+    hi, lo, va, n, ovf, changed = body(hi, lo, valid, n_b, ovf0)
+    it = 1
+    while changed and it < max_iter:
+        hi, lo, va, n, ovf, changed = body(hi, lo, va, n, ovf)
+        it += 1
+    return hi, lo, va, n, ovf
+
+
+def check_device_keys(succ, inv_proc, inv_tr, ok_proc, depth, *,
+                      B: int, F: int, P: int, n_states: int,
+                      n_transitions: int, device=None):
+    """The key-packed batch engine: B histories, frontier = (hi, lo)
+    int32 pairs, one block sort per closure iteration. Segment tensors
+    are ``(S, B, K)`` (``inv_proc``, ``inv_tr``), ``(S, B)``
+    (``ok_proc``) and ``(S,)`` (``depth``, the max over the batch).
+    Returns ``(status[B], fail_segment[B], n_final[B])`` tensors.
+
+    A segment where no history is live changes nothing and is
+    skipped."""
+    lay = KeyLayout(B, n_states, n_transitions, P)
+    if not lay.fits:
+        raise ValueError("key layout must fit 62 bits")
+    dev = engine_device(succ, device)
+    succ = as_tensor(succ, dev)
+    ip_all = as_tensor(inv_proc, dev)
+    it_all = as_tensor(inv_tr, dev)
+    okp_all = as_tensor(ok_proc, dev)
+    depths = np.asarray(depth).tolist()
+    S, _, K = ip_all.shape
+    rows = torch.arange(B * F, dtype=torch.int32, device=dev)
+    batch = (rows // F).long()
+
+    # per-row constants: the batch field and the invalid sentinel
+    bword, bshift = lay.pos[("batch", 0)]
+    ivword, ivshift = lay.pos[("invalid", 0)]
+    zero = torch.zeros_like(rows)
+    if bword == 1:
+        base_hi, base_lo = (rows // F) << bshift, zero
+    else:
+        base_hi, base_lo = zero, (rows // F) << bshift
+    inv_hi_row = base_hi + ((1 << ivshift) if ivword == 1 else 0)
+    inv_lo_row = base_lo + ((1 << ivshift) if ivword == 0 else 0)
+    # candidate chunk q holds rows 0..B*F in frontier order, so its
+    # batch layout is the frontier's, tiled P times
+    inv_hi_all = inv_hi_row.repeat(P + 1)
+    inv_lo_all = inv_lo_row.repeat(P + 1)
+
+    # initial frontier: one empty config per batch (all slots IDLE=1)
+    idle_lo = idle_hi = 0
+    for q in range(P):
+        w, sh = lay.pos[("slot", q)]
+        if w == 0:
+            idle_lo |= 1 << sh
+        else:
+            idle_hi |= 1 << sh
+    hi = base_hi + idle_hi
+    lo = base_lo + idle_lo
+    va = (torch.arange(B * F, device=dev) % F) == 0
+    n_b = torch.ones(B, dtype=torch.int32, device=dev)
+    status = torch.full((B,), VALID, dtype=torch.int32, device=dev)
+    fail_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
+
+    for s in range(S):
+        inv_p, inv_t, ok_p = ip_all[s], it_all[s], okp_all[s]
+        live_b = (status == VALID) & (ok_p >= 0)
+        if not bool(live_b.any()):
+            continue
+        live_row = live_b[batch]
+        h, l = hi, lo
+        for k in range(K):
+            p_row = inv_p[batch, k]
+            tr_row = inv_t[batch, k]
+            m = live_row & (p_row >= 0)
+            # slot p: IDLE (1) -> tr+2; delta = tr+1
+            h2, l2 = lay.add_slot_dynamic(h, l, p_row.clamp(min=0),
+                                          tr_row + 1)
+            h = torch.where(m, h2, h)
+            l = torch.where(m, l2, l)
+
+        h2, l2, va2, n2, ovf = _k_closure(succ, lay, h, l, va, n_b,
+                                          inv_hi_all, inv_lo_all, B, F,
+                                          max_iter=depths[s])
+        okp_row = ok_p.clamp(min=0)[batch]
+        slot_ok = lay.slot_dynamic(h2, l2, okp_row)
+        returned = va2 & (slot_ok == 0)                 # LIN
+        h3, l3 = lay.add_slot_dynamic(h2, l2, okp_row,
+                                      returned.to(torch.int32))
+        n3 = returned.reshape(B, F).sum(1).to(torch.int32)
+        st_new = torch.where(ovf, UNKNOWN, torch.where(
+            n3 == 0, INVALID, VALID)).to(torch.int32)
+        status2 = torch.where(live_b, st_new, status)
+        fail_at = torch.where(live_b & (st_new != VALID), s, fail_at)
+        keep_row = live_row & (status2[batch] == VALID)
+        hi = torch.where(keep_row, h3, hi)
+        lo = torch.where(keep_row, l3, lo)
+        va = torch.where(keep_row, returned, va)
+        n_b = torch.where(live_b & (status2 == VALID), n3, n_b)
+        status = status2
+    return status, fail_at, n_b

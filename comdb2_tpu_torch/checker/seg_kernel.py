@@ -1,5 +1,5 @@
-"""Segment-search kernel: the whole segment loop of one history in one
-CUDA launch.
+"""Segment-search kernel: the whole segment loop of one history, or of a
+RESET-marked stream of many histories, in one CUDA launch.
 
 Replaces the JAX package's fused Pallas kernel
 ``comdb2_tpu/checker/pallas_seg.py`` ``_build_kernel`` (launched from
@@ -29,18 +29,35 @@ the whole run (no device-memory round trip between segments), and
 each closure iteration sorts only ``next_pow2(n * (P + 1))`` keys — the
 frontier that is actually live — instead of the full buffer.
 
+Stream mode (the batch path, ``checker.batch`` engine ``stream``): a
+row with ``ok_proc == RESET`` flushes the current history's ``(status,
+fail, n)`` into ``results[counter]``, advances the counter and re-seeds
+the frontier with the empty config; an INVALID or UNKNOWN history skips
+to the next RESET, so it never stops the histories after it. A batch is
+packed into G RESET-marked group streams, balanced by segment count,
+one CTA each (:func:`stream_dispatch`).
+
 Host half (same key layout as the JAX package, so frontiers decode
 identically): :class:`SegKernelSpec`, :func:`spec_for`,
 :func:`pack_table`, :func:`pack_segments`, :func:`initial_frontier`,
-:func:`decode_frontier`. The plain PyTorch version is
-:func:`seg_search_reference`; :func:`seg_search` runs it only for CPU
-tensors and launches the CUDA kernel (``kernels/seg_search.cu``) for
-CUDA tensors.
+:func:`decode_frontier`, :func:`pack_stream`, :func:`plan_stream_slices`,
+:func:`merge_stream_slice`, :func:`plan_groups`. The plain PyTorch
+version is :func:`seg_search_reference`; :func:`seg_search` and
+:func:`seg_search_stream` run it only for CPU tensors and launch the
+CUDA kernel (``kernels/seg_search.cu``) for CUDA tensors.
+
+Not carried over from the TPU design: the per-call history cap
+(``MAX_STREAM_B``), the 1024-segment scalar-memory chunking, the (b_pad,
+128) results tile and the pool of donated carries. They bound Mosaic's
+scalar and vector memories and XLA's buffer reuse; here the stream and
+the results live in device memory sized to the batch, and PyTorch's
+caching allocator recycles the per-dispatch buffers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import heapq
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -59,10 +76,12 @@ MAX_K = 8                 # invokes per segment the kernel serves
 
 SENT_HI = 1 << 30
 SENT_LO = 0
+RESET = -2                # ok_proc marker: flush a history, start the next
 
-#: kernel launches this process (the wrapper's count; the plain
-#: version never touches it)
+#: kernel launches this process (the wrappers' counts; the plain
+#: version never touches them): single-history and stream mode
 LAUNCHES = 0
+STREAM_LAUNCHES = 0
 
 
 class SegKernelSpec(NamedTuple):
@@ -206,17 +225,23 @@ def _unique_keys(keys: torch.Tensor) -> torch.Tensor:
 def seg_search_reference(seg: torch.Tensor, off: int, stride: int,
                          ws: torch.Tensor, stat: torch.Tensor,
                          table: torch.Tensor, spec: SegKernelSpec,
-                         work: Optional[dict] = None):
+                         work: Optional[dict] = None,
+                         results: Optional[torch.Tensor] = None):
     """The segment search as a set-semantics loop of torch ops, on the
     inputs' device. Same contract as :func:`seg_search`: returns
     ``(status, fail, n, ws_out)`` with ``ws_out`` int32[n_words, 128]
     (survivors first, sentinel after).
 
-    ``work``, when given, accumulates what the kernel's algorithm must
-    do on these inputs: ``keys`` (keys dedup'd over all closure
-    iterations) and ``compare_exchanges`` (bitonic compare-exchanges
-    over each iteration's ``next_pow2(n * (P + 1))`` keys) — the
-    operation count of the kernel's roofline bound."""
+    ``results`` (int32[H, 3]) selects stream mode: each RESET row writes
+    ``(status, fail, n)`` to ``results[counter]`` when the counter
+    (``stat[3]``) is in ``[0, H)``, then restarts from the empty config.
+
+    ``work``, when given, accumulates what the function needs on these
+    inputs, whatever the algorithm: ``keys`` (the ``m = n * (P + 1)``
+    keys of every closure iteration, summed) and ``compares`` (``m *
+    floor(log2 m)`` comparisons to sort them plus ``m - 1`` to find the
+    duplicates) — the operation count of the kernel's roofline bound,
+    which the kernel's ``work`` counter reproduces."""
     dev = ws.device
     W, P = spec.n_words, spec.P
     K = (seg.shape[1] - 2) // 2
@@ -240,10 +265,22 @@ def seg_search_reference(seg: torch.Tensor, off: int, stride: int,
     def slots_of(keys):                       # (n, P)
         return (keys[:, slot_w] >> slot_sh) & slot_mask
 
+    root = torch.tensor([_root_key(spec)], dtype=torch.int64, device=dev)
     for i, row in enumerate(seg.tolist()):
-        if status != VALID:
-            break
         okp, depth = row[0], row[1]
+        if okp == RESET:
+            if results is None:
+                continue
+            if 0 <= counter < results.shape[0]:
+                results[counter] = torch.tensor([status, fail, n_stat],
+                                                dtype=torch.int32)
+            counter += 1
+            status, fail, n_stat, fr = VALID, -1, 1, root
+            continue
+        if status != VALID:
+            if results is None:
+                break
+            continue               # skip to the next RESET
         if okp < 0:
             continue
         for k in range(K):
@@ -253,13 +290,11 @@ def seg_search_reference(seg: torch.Tensor, off: int, stride: int,
         ovf = False
         n = fr.shape[0]
         for _ in range(depth):
-            if work is not None:
-                m = _next_pow2(n * (P + 1))
-                lg = m.bit_length() - 1
-                work["keys"] = work.get("keys", 0) + n * (P + 1)
-                work["compare_exchanges"] = (
-                    work.get("compare_exchanges", 0)
-                    + (m // 2) * lg * (lg + 1) // 2)
+            m = n * (P + 1)
+            if work is not None and m > 0:
+                work["keys"] = work.get("keys", 0) + m
+                work["compares"] = (work.get("compares", 0)
+                                    + m * (m.bit_length() - 1) + m - 1)
             s = (fr[:, sw] >> ssh) & state_mask
             tq = slots_of(fr)
             idx = s[:, None] * stride + (tq - 2).clamp(min=0)
@@ -294,50 +329,77 @@ def seg_search_reference(seg: torch.Tensor, off: int, stride: int,
 
 # --- the CUDA kernel's wrapper ------------------------------------------------
 
-def _check_inputs(seg, ws, stat, table, spec: SegKernelSpec) -> None:
+def _check_inputs(seg, ws, stat, table, spec: SegKernelSpec,
+                  results=None, work=None) -> None:
+    """Single-history shapes, or with a leading G axis on ``seg``,
+    ``ws`` and ``stat`` (stream mode: ``results`` int32[G, H, 3],
+    ``work`` int64[G] or None)."""
     dev = ws.device
-    for name, t in (("seg", seg), ("ws", ws), ("stat", stat),
-                    ("table", table)):
+    lead = tuple(seg.shape[:-2])
+    named = [("seg", seg), ("ws", ws), ("stat", stat), ("table", table)]
+    if results is not None:
+        named.append(("results", results))
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, ws on {dev}")
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if seg.dim() != 2 or seg.shape[1] != 2 + 2 * spec.K:
-        raise ValueError(f"seg shape {tuple(seg.shape)} != (S, "
+    if seg.dim() not in (2, 3) or seg.shape[-1] != 2 + 2 * spec.K:
+        raise ValueError(f"seg shape {tuple(seg.shape)} != ([G,] S, "
                          f"{2 + 2 * spec.K})")
-    if tuple(ws.shape) != (spec.n_words, LANES):
+    if tuple(ws.shape) != lead + (spec.n_words, LANES):
         raise ValueError(f"ws shape {tuple(ws.shape)} != "
-                         f"({spec.n_words}, {LANES})")
-    if tuple(stat.shape) != (4,):
-        raise ValueError(f"stat shape {tuple(stat.shape)} != (4,)")
+                         f"{lead + (spec.n_words, LANES)}")
+    if tuple(stat.shape) != lead + (4,):
+        raise ValueError(f"stat shape {tuple(stat.shape)} != "
+                         f"{lead + (4,)}")
     if table.dim() != 1 or not 0 < table.numel() <= MAX_TABLE:
         raise ValueError(f"table must be 1-D with 1..{MAX_TABLE} "
                          f"entries, got {tuple(table.shape)}")
+    if results is not None and (results.dim() != 3
+                                or tuple(results.shape[:1]) != lead
+                                or results.shape[2] != 3):
+        raise ValueError(f"results shape {tuple(results.shape)} != "
+                         f"{lead + ('H', 3)}")
+    if work is not None and (work.dtype != torch.int64
+                             or tuple(work.shape) != (lead or (1,))
+                             or work.device != dev):
+        raise ValueError("work must be int64 with one entry per CTA")
 
 
 def _launch(seg, off: int, stride: int, ws, stat, table,
-            spec: SegKernelSpec):
-    """One kernel launch on the current stream; returns the output
-    carry ``(ws_out, stat_out)`` without synchronising."""
-    global LAUNCHES
+            spec: SegKernelSpec, results=None, work=None):
+    """One kernel launch on the current stream, one CTA per leading
+    index of ``seg`` (or one CTA for a 2-D ``seg``); returns the output
+    carry ``(ws_out, stat_out)`` without synchronising. ``results``
+    selects stream mode; ``work`` receives each CTA's count of needed
+    comparisons (see :func:`seg_search_reference`)."""
+    global LAUNCHES, STREAM_LAUNCHES
     from ..kernels import build
 
     lib = build.load()
-    _check_inputs(seg, ws, stat, table, spec)
+    _check_inputs(seg, ws, stat, table, spec, results, work)
     ws_out = torch.empty_like(ws)
     stat_out = torch.empty_like(stat)
     lay = build.layout(spec)
+    batch = seg.shape[0] if seg.dim() == 3 else 1
     err = lib.seg_search_launch(
-        seg.data_ptr(), seg.shape[0], off, stride, ws.data_ptr(),
+        seg.data_ptr(), seg.shape[-2], off, stride, ws.data_ptr(),
         stat.data_ptr(), table.data_ptr(), table.numel(),
-        ws_out.data_ptr(), stat_out.data_ptr(), 1, ctypes.byref(lay),
+        ws_out.data_ptr(), stat_out.data_ptr(), batch, ctypes.byref(lay),
+        None if results is None else results.data_ptr(),
+        0 if results is None else results.shape[1],
+        None if work is None else work.data_ptr(),
         torch.cuda.current_stream(ws.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_search launch failed: CUDA error {err} "
                            f"({build.error_string(err)})")
-    LAUNCHES += 1
+    if results is None:
+        LAUNCHES += 1
+    else:
+        STREAM_LAUNCHES += 1
     return ws_out, stat_out
 
 
@@ -440,4 +502,183 @@ def check_device_seg_kernel_chunked(succ: np.ndarray, segs, *,
     out = (status, fail, n)
     if return_boundary:
         return out + ((prev_ws, min(done, s_real)),)
+    return out
+
+
+# --- stream mode: many histories per launch ----------------------------------
+
+def pack_stream(segs_list, spec: SegKernelSpec, chunk: int = 1):
+    """Concatenate per-history segment streams into one stream with
+    RESET markers: [R][h0][R][h1]...[R]. The first R starts history 0
+    (the counter begins at -1, so nothing is flushed); each later R
+    flushes the previous history; the trailing R flushes the last.
+    Returns ``(rows int32[n, 2+2K], starts int64[B])``, ``n`` padded
+    with dead rows to a multiple of ``chunk``; ``starts[b]`` is history
+    b's first segment's index in the stream."""
+    B = len(segs_list)
+    W = 2 + 2 * spec.K
+    sizes = [s.ok_proc.shape[0] for s in segs_list]
+    total = sum(sizes) + B + 1
+    flat = np.zeros((max(-(-total // chunk), 1) * chunk, W), np.int32)
+    flat[:, 0] = -1                       # default: dead padding
+    starts = np.zeros(B, np.int64)
+    pos = 0
+    for b, segs in enumerate(segs_list):
+        flat[pos, 0] = RESET
+        pos += 1
+        starts[b] = pos
+        S = sizes[b]
+        k_in = segs.inv_proc.shape[1]
+        flat[pos:pos + S, 0] = segs.ok_proc
+        flat[pos:pos + S, 1] = segs.depth
+        flat[pos:pos + S, 2:2 + k_in] = segs.inv_proc
+        if k_in < spec.K:
+            flat[pos:pos + S, 2 + k_in:2 + spec.K] = -1
+        flat[pos:pos + S, 2 + spec.K:2 + spec.K + k_in] = segs.inv_tr
+        pos += S
+    flat[pos, 0] = RESET                  # trailing flush
+    return flat, starts
+
+
+def plan_stream_slices(B: int, n_devices: int,
+                       max_stream_b: Optional[int] = None):
+    """Pure slice assignment: ``[(start, end, device_index), ...]``
+    covering ``range(B)`` in order, slices capped at ``max_stream_b``
+    histories (default: no cap — one slice) and, when ``n_devices`` >
+    0, sized to spread the batch across the devices round-robin.
+
+    The reference's slice plan, kept as a pure helper: the port's batch
+    path runs the whole batch in one launch and never slices it."""
+    cap = max(B, 1) if max_stream_b is None else max_stream_b
+    group = min(cap, -(-B // n_devices)) if n_devices > 0 else cap
+    return [(i, min(i + group, B),
+             ((i // group) % n_devices) if n_devices > 0 else 0)
+            for i in range(0, B, group)]
+
+
+def merge_stream_slice(res: np.ndarray, starts, n: int):
+    """Pure verdict unpacking: the kernel reports fail segments in
+    stream coordinates; callers need them history-local. Returns
+    ``[(status, fail_seg_local, n_final), ...]``."""
+    out = []
+    for b in range(n):
+        st = int(res[b, 0])
+        fail_g = int(res[b, 1])
+        fail_local = fail_g - int(starts[b]) if fail_g >= 0 else -1
+        out.append((st, fail_local, int(res[b, 2])))
+    return out
+
+
+def plan_groups(sizes, G: int):
+    """Balance histories over ``G`` group streams by segment count
+    (longest first onto the lightest group). Returns one list of
+    history indices per non-empty group, each in ascending order."""
+    G = max(min(G, len(sizes)), 1)
+    heap = [(0, g) for g in range(G)]
+    groups = [[] for _ in range(G)]
+    for b in sorted(range(len(sizes)), key=lambda b: (-sizes[b], b)):
+        load, g = heapq.heappop(heap)
+        groups[g].append(b)
+        heapq.heappush(heap, (load + sizes[b] + 1, g))
+    return [sorted(g) for g in groups if g]
+
+
+#: streaming multiprocessors of an H100; the group count on CPU tensors
+#: (where no card can be asked)
+SM_COUNT = 132
+
+
+def default_groups(B: int, spec: SegKernelSpec, table_n: int,
+                   device) -> int:
+    """Group streams for a batch of ``B``: on the card, as many CTAs as
+    it holds at once (SMs x resident CTAs per SM for this layout), so
+    the whole batch runs in one wave; on CPU tensors ``SM_COUNT``."""
+    if device.type != "cuda":
+        return max(min(B, SM_COUNT), 1)
+    from ..kernels import build
+
+    per_sm = build.load().seg_search_occupancy(
+        ctypes.byref(build.layout(spec)), table_n)
+    if per_sm < 1:
+        raise RuntimeError("seg_search: no CTA of this layout fits an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(min(B, sms * per_sm), 1)
+
+
+def seg_search_stream(seg: torch.Tensor, stride: int, table: torch.Tensor,
+                      spec: SegKernelSpec, n_hist: int,
+                      work: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run G RESET-marked group streams ``seg`` (int32[G, L, 2+2K]) from
+    the initial carry. Returns ``results`` int32[G, n_hist, 3]: the
+    ``(status, fail, n)`` of each group's histories in stream order
+    (fail in stream coordinates).
+
+    CPU tensors run :func:`seg_search_reference` group by group; CUDA
+    tensors launch the kernel once, one CTA per group, and a failed
+    build or launch raises. ``work`` (int64[G], CUDA only) receives each
+    CTA's count of needed comparisons (see :func:`seg_search_reference`)."""
+    dev = seg.device
+    G = seg.shape[0]
+    ws0 = torch.from_numpy(initial_frontier(spec)).to(dev)
+    stat0 = torch.from_numpy(_init_stat()).to(dev)
+    results = torch.zeros((G, max(n_hist, 1), 3), dtype=torch.int32,
+                          device=dev)
+    if not seg.is_cuda:
+        for g in range(G):
+            seg_search_reference(seg[g], 0, stride, ws0, stat0, table,
+                                 spec, results=results[g])
+        return results
+    _launch(seg, 0, stride, ws0.expand(G, *ws0.shape).contiguous(),
+            stat0.expand(G, 4).contiguous(), table, spec, results=results,
+            work=work)
+    return results
+
+
+def pack_groups(segs_list, spec: SegKernelSpec, groups: int):
+    """Pack histories into ``groups`` RESET-marked group streams,
+    balanced by segment count (:func:`plan_groups`), each padded with
+    dead rows to the longest. Returns ``(seg int32[G, L, 2+2K], plan,
+    starts)``: ``plan[g]`` lists group g's history indices in stream
+    order, ``starts[g]`` their first segments' stream indices."""
+    plan = plan_groups([s.ok_proc.shape[0] for s in segs_list], groups)
+    packs = [pack_stream([segs_list[b] for b in grp], spec)
+             for grp in plan]
+    L = max(rows.shape[0] for rows, _ in packs)
+    seg = np.zeros((len(plan), L, 2 + 2 * spec.K), np.int32)
+    seg[:, :, 0] = -1
+    for g, (rows, _) in enumerate(packs):
+        seg[g, :rows.shape[0]] = rows
+    return seg, plan, [starts for _, starts in packs]
+
+
+def stream_dispatch(succ, segs_list, spec: SegKernelSpec, n_states: int,
+                    n_transitions: int, device=None,
+                    groups: Optional[int] = None,
+                    info: Optional[dict] = None):
+    """Check many independent histories in ONE launch: pack them into
+    G RESET-marked group streams balanced by segment count (G from
+    :func:`default_groups` unless given), one CTA per group. Every
+    history gets its own verdict; one history's INVALID or UNKNOWN never
+    stops the others. Returns ``[(status, fail_seg_local, n), ...]`` in
+    input order; ``info`` receives the launch geometry."""
+    dev = resolve_device(device)
+    B = len(segs_list)
+    if B == 0:
+        return []
+    table = torch.from_numpy(
+        pack_table(np.asarray(succ)[:n_states, :n_transitions])).to(dev)
+    if groups is None:
+        groups = default_groups(B, spec, table.numel(), dev)
+    seg, plan, starts = pack_groups(segs_list, spec, groups)
+    n_hist = max(len(grp) for grp in plan)
+    if info is not None:
+        info.update(groups=len(plan), rows=seg.shape[1], histories=B,
+                    max_per_group=n_hist)
+    res = seg_search_stream(torch.from_numpy(seg).to(dev), n_transitions,
+                            table, spec, n_hist).cpu().numpy()
+    out: list = [None] * B
+    for g, grp in enumerate(plan):
+        for b, r in zip(grp, merge_stream_slice(res[g], starts[g],
+                                                len(grp))):
+            out[b] = r
     return out

@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-``seg_search.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes`` (pointers as
-``c_void_p``, the stream from ``torch.cuda.current_stream()``). The
-build happens at first use, into ``comdb2_tpu_torch/_build/``, keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads the library already built.
+Each source (``seg_search.cu``, ``pair_sort.cu``) is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library with a plain C
+interface, loaded with ``ctypes`` (pointers as ``c_void_p``, the stream
+from ``torch.cuda.current_stream()``). The build happens at first use,
+into ``comdb2_tpu_torch/_build/``, keyed by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads the
+library already built. :func:`build_all` starts one ``nvcc`` per source
+at once.
 
 Nothing here runs at import: the CPU tests import every module, and
 the host they run on has no ``nvcc``.
@@ -19,19 +21,21 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 _HERE = Path(__file__).resolve().parent
-SOURCE = _HERE / "seg_search.cu"
+SOURCES = {"seg_search": _HERE / "seg_search.cu",
+           "pair_sort": _HERE / "pair_sort.cu"}
 BUILD_DIR = _HERE.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: compiler output of the last build in this process (``-Xptxas -v``
-#: reports registers, shared memory and spills per kernel)
-BUILD_LOG = ""
+#: compiler output of each build in this process, by source name
+#: (``-Xptxas -v`` reports registers, shared memory and spills per
+#: kernel)
+BUILD_LOG: Dict[str, str] = {}
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 class SegLayout(ctypes.Structure):
@@ -43,7 +47,8 @@ class SegLayout(ctypes.Structure):
                 ("state_shift", ctypes.c_int),
                 ("n_keys", ctypes.c_int),
                 ("slot_word", ctypes.c_int * 16),
-                ("slot_shift", ctypes.c_int * 16)]
+                ("slot_shift", ctypes.c_int * 16),
+                ("root", ctypes.c_int * 4)]
 
 
 def layout(spec) -> SegLayout:
@@ -56,6 +61,7 @@ def layout(spec) -> SegLayout:
     for q, (w, sh) in enumerate(spec.slot_pos):
         lay.slot_word[q] = w
         lay.slot_shift[q] = sh
+        lay.root[w] |= 1 << sh            # the empty config: slots IDLE
     return lay
 
 
@@ -70,47 +76,77 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
-def library_path() -> Path:
+def library_path(name: str = "seg_search") -> Path:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCE.read_bytes()
+    h = hashlib.sha256(SOURCES[name].read_bytes()
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"seg_search_{h}.so"
+    return BUILD_DIR / f"{name}_{h}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is already built; returns its
-    path. Raises on a failed compile, with the compiler's output."""
-    global BUILD_LOG
-    out = library_path()
+def _start(name: str):
+    """Start ``nvcc`` for ``name`` unless its library is built; returns
+    ``(out, tmp, process)`` or None."""
+    out = library_path(name)
     if out.exists():
-        return out
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{BUILD_LOG}")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, started) -> None:
+    out, tmp, proc = started
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = log
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
+                           f"\n{log}")
     os.replace(tmp, out)
-    return out
 
 
-def load() -> ctypes.CDLL:
-    """Build (at first use) and load the library, with every
-    function's argument and result types declared."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    lib = ctypes.CDLL(str(build()))
+def build(name: str = "seg_search") -> Path:
+    """Compile one library unless it is already built; returns its
+    path. Raises on a failed compile, with the compiler's output."""
+    started = _start(name)
+    if started is not None:
+        _finish(name, started)
+    return library_path(name)
+
+
+def build_all() -> None:
+    """Compile every library not yet built, one ``nvcc`` per source,
+    all running at once. Raises on the first failed compile."""
+    started = {n: _start(n) for n in SOURCES}
+    for name, st in started.items():
+        if st is not None:
+            _finish(name, st)
+
+
+def load(name: str = "seg_search") -> ctypes.CDLL:
+    """Build (at first use) and load one library, with every function's
+    argument and result types declared."""
+    if name in _LIBS:
+        return _LIBS[name]
+    lib = ctypes.CDLL(str(build(name)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.seg_search_launch.argtypes = [p, i, i, i, p, p, p, i, p, p, i,
-                                      ctypes.POINTER(SegLayout), p]
-    lib.seg_search_launch.restype = i
-    lib.seg_search_error_string.argtypes = [i]
-    lib.seg_search_error_string.restype = ctypes.c_char_p
-    _LIB = lib
+    if name == "seg_search":
+        lib.seg_search_launch.argtypes = [
+            p, i, i, i, p, p, p, i, p, p, i, ctypes.POINTER(SegLayout),
+            p, i, p, p]
+        lib.seg_search_launch.restype = i
+        lib.seg_search_occupancy.argtypes = [ctypes.POINTER(SegLayout), i]
+        lib.seg_search_occupancy.restype = i
+    else:
+        lib.pair_sort_launch.argtypes = [p, p, i, i, i, p]
+        lib.pair_sort_launch.restype = i
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [i]
+    err_fn.restype = ctypes.c_char_p
+    _LIBS[name] = lib
     return lib
 
 
-def error_string(err: int) -> str:
-    return load().seg_search_error_string(err).decode()
+def error_string(err: int, name: str = "seg_search") -> str:
+    return getattr(load(name), f"{name}_error_string")(err).decode()

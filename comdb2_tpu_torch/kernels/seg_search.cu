@@ -1,15 +1,24 @@
 // Segment-search kernel for Hopper (sm_90a): the whole segment loop of
-// one history in one CTA.
+// one segment stream in one CTA.
 //
 // Replaces comdb2_tpu/checker/pallas_seg.py `_build_kernel` (the fused
-// Pallas TPU kernel). The function is the same — see
-// comdb2_tpu_torch/checker/seg_kernel.py for the semantics and its plain
-// PyTorch version `seg_search_reference`. The TPU kernel's sequential
-// grid of 1024-segment chunks, its (8|16, 128) vreg rows and its
-// row-broadcast table gather were Mosaic limits and are not reproduced:
-// here one CTA per history loops over its segments itself, with the
+// Pallas TPU kernel), in both its modes: one history per launch, and the
+// RESET stream mode that checks many histories in one stream. The
+// function is the same — see comdb2_tpu_torch/checker/seg_kernel.py for
+// the semantics and its plain PyTorch version `seg_search_reference`.
+// The TPU kernel's sequential grid of 1024-segment chunks, its (8|16,
+// 128) vreg rows, its row-broadcast table gather and its VMEM-resident
+// (b_pad, 128) results tile were Mosaic limits and are not reproduced:
+// here one CTA per stream loops over its segments itself, with the
 // frontier, the candidate buffer and the successor table resident in
-// shared memory for the whole launch.
+// shared memory for the whole launch, and a batch is G streams on G CTAs.
+//
+// Stream mode (results != NULL): a row with ok_proc == RESET (-2) ends
+// one history and starts the next. If the history counter is >= 0 it
+// writes (status, fail, n) to results[cta][counter]; then the counter
+// advances, the frontier is re-seeded with the root key and the status
+// resets to (VALID, -1, 1). A history that is INVALID or UNKNOWN skips
+// to the next RESET, so it never stops the histories after it.
 //
 // Bound: the serial chain segment x closure iteration x bitonic stage
 // (a __syncthreads each), not bytes or FLOPs. Each closure iteration
@@ -35,6 +44,7 @@
 #define ST_VALID 0
 #define ST_INVALID 1
 #define ST_UNKNOWN 2
+#define RESET (-2)
 
 extern "C" {
 struct SegLayout {
@@ -44,6 +54,7 @@ struct SegLayout {
   int n_keys;                 // sort-buffer capacity, a power of two
   int slot_word[16];
   int slot_shift[16];
+  int root[4];                // the empty config's words (RESET re-seed)
 };
 }
 
@@ -147,14 +158,17 @@ __device__ int dedup_compact(const int* keys, int cap, int W, int M,
 
 // seg: [B, n_seg, 2+2K] rows (ok_proc, depth, inv_proc[K], inv_tr[K]);
 // ws: [B, W, 128] frontier carry; stat: [B, 4] (status, fail, n, counter);
-// table: [table_n] successor table, row stride `stride`.
+// table: [table_n] successor table, row stride `stride`;
+// results: [B, res_stride, 3] per-history verdicts (stream mode) or NULL;
+// work: [B] the comparisons this CTA's closures needed (see `cx`), or NULL.
 __global__ void __launch_bounds__(THREADS)
 seg_search_kernel(const int* __restrict__ seg, int n_seg, int off,
                   int stride, const int* __restrict__ ws_in,
                   const int* __restrict__ stat_in,
                   const int* __restrict__ table_g, int table_n,
                   int* __restrict__ ws_out, int* __restrict__ stat_out,
-                  SegLayout lay) {
+                  int* __restrict__ results, int res_stride,
+                  unsigned long long* __restrict__ work, SegLayout lay) {
   extern __shared__ int smem[];
   const int W = lay.W, P = lay.P, K = lay.K, cap = lay.n_keys;
   const int width = 2 + 2 * K;
@@ -192,13 +206,39 @@ seg_search_kernel(const int* __restrict__ seg, int n_seg, int off,
       }
   }
   int status = stat_in[0], fail = stat_in[1], n_stat = stat_in[2];
-  const int counter = stat_in[3];
+  int counter = stat_in[3];
+  const bool stream = results != nullptr;
+  unsigned long long cx = 0;                // comparisons needed (tid 0)
   __syncthreads();
 
   const uint32_t slot_mask = (1u << lay.slot_bits) - 1u;
-  for (int si = 0; si < n_seg && status == ST_VALID; ++si) {
+  // every branch below depends only on values all threads hold alike
+  // (the segment row, status, n), so the barriers inside are uniform
+  for (int si = 0; si < n_seg; ++si) {
     const int* row = seg + (size_t)si * width;
     const int okp = row[0];
+    if (okp == RESET) {
+      if (!stream) continue;
+      if (tid == 0 && counter >= 0 && counter < res_stride) {
+        int* r = results + ((size_t)bix * res_stride + counter) * 3;
+        r[0] = status;
+        r[1] = fail;
+        r[2] = n_stat;
+      }
+      ++counter;
+      status = ST_VALID;
+      fail = -1;
+      n_stat = 1;
+      n = 1;
+      __syncthreads();
+      if (tid < W) fr[tid * LANES] = lay.root[tid];
+      __syncthreads();
+      continue;
+    }
+    if (status != ST_VALID) {
+      if (stream) continue;                 // skip to the next RESET
+      break;
+    }
     if (okp < 0) continue;                  // dead padding segment
     const int depth = row[1];
 
@@ -249,6 +289,13 @@ seg_search_kernel(const int* __restrict__ seg, int n_seg, int off,
           keys[w * cap + e] = valid ? kw[w] : (w == W - 1 ? SENT_HI : 0);
       }
       __syncthreads();
+      if (tid == 0 && total > 0) {
+        // what sorting and deduplicating the `total` keys needs, whatever
+        // the algorithm: total * floor(lg total) comparisons to sort, and
+        // total - 1 to find the duplicates (no power-of-two padding)
+        const int lg = 31 - __clz(total);
+        cx += (unsigned long long)total * lg + total - 1;
+      }
       bitonic_sort(keys, cap, W, M);
       const int n2 = dedup_compact(keys, cap, W, M, fr, scratch);
       if (n2 > F_CAP) {                     // sticky overflow
@@ -301,30 +348,59 @@ seg_search_kernel(const int* __restrict__ seg, int n_seg, int off,
     stat_out[1] = fail;
     stat_out[2] = n_stat;
     stat_out[3] = counter;
+    if (work != nullptr) work[bix] = cx;
   }
 }
 
+static size_t smem_bytes(const SegLayout* lay, int table_n) {
+  return sizeof(int) * ((size_t)lay->W * lay->n_keys +
+                        (size_t)lay->W * LANES + table_n + 64);
+}
+
+static bool layout_ok(const SegLayout* lay, int table_n) {
+  return !(lay->P < 1 || lay->P > MAX_P || lay->W < 1 || lay->W > MAX_W ||
+           lay->K < 1 || lay->n_keys > MAX_KEYS ||
+           lay->n_keys < LANES * (lay->P + 1) || table_n < 1 ||
+           table_n > MAX_TABLE);
+}
+
+// `batch` CTAs, one per stream; stream b reads seg[b], ws_in[b],
+// stat_in[b]. `results` (stream mode) and `work` may be NULL.
 extern "C" int seg_search_launch(const int* seg, int n_seg, int off,
                                  int stride, const int* ws_in,
                                  const int* stat_in, const int* table,
                                  int table_n, int* ws_out, int* stat_out,
                                  int batch, const SegLayout* lay,
-                                 void* stream) {
-  if (lay->P < 1 || lay->P > MAX_P || lay->W < 1 || lay->W > MAX_W ||
-      lay->K < 1 || lay->n_keys > MAX_KEYS ||
-      lay->n_keys < LANES * (lay->P + 1) || table_n < 1 ||
-      table_n > MAX_TABLE || n_seg < 0 || batch < 1)
+                                 int* results, int res_stride,
+                                 unsigned long long* work, void* stream) {
+  if (!layout_ok(lay, table_n) || n_seg < 0 || batch < 1 ||
+      (results != nullptr && res_stride < 1))
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = sizeof(int) * ((size_t)lay->W * lay->n_keys +
-                                      (size_t)lay->W * LANES + table_n + 64);
+  const size_t bytes = smem_bytes(lay, table_n);
   cudaError_t err = cudaFuncSetAttribute(
       seg_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   seg_search_kernel<<<batch, THREADS, bytes, (cudaStream_t)stream>>>(
       seg, n_seg, off, stride, ws_in, stat_in, table, table_n, ws_out,
-      stat_out, *lay);
+      stat_out, results, res_stride, work, *lay);
   return (int)cudaGetLastError();
+}
+
+// CTAs of this layout one SM holds at once (0 on error): the stream
+// dispatcher sizes its group count to fill the card in one wave.
+extern "C" int seg_search_occupancy(const SegLayout* lay, int table_n) {
+  if (!layout_ok(lay, table_n)) return 0;
+  const size_t bytes = smem_bytes(lay, table_n);
+  if (cudaFuncSetAttribute(seg_search_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes) != cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, seg_search_kernel, THREADS, bytes) != cudaSuccess)
+    return 0;
+  return blocks;
 }
 
 extern "C" const char* seg_search_error_string(int err) {

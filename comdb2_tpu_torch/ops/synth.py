@@ -112,3 +112,25 @@ def mutate(rng: random.Random, history: List[O.Op],
         v = op.value if isinstance(op.value, int) else 0
         h[i] = op.with_(value=(v + 1) % values)
     return h
+
+
+def pinned_wide_history(n_pinned: int = 18,
+                        with_reads: bool = True) -> List[O.Op]:
+    """A history whose EFFECTIVE slot count (max concurrent open
+    calls, post slot-renaming) is ``n_pinned``+1 while the search
+    frontier stays tiny: each pinned slot is a crashed (:info) cas
+    whose expected value (9) is unreachable — forever open, so it
+    holds its slot, but it can never linearize, so it forks no
+    configs. It drives the wide-P engines (the multi-word PackPlan
+    dedup) past the segment-search kernel's gate."""
+    h: List[O.Op] = []
+    for i in range(n_pinned):
+        h.append(O.invoke(2000 + i, "cas", (9, 1)))   # 9 unreachable
+        h.append(O.info(2000 + i, "cas", (9, 1)))
+        p = i % 3
+        h.append(O.invoke(p, "write", i % 4))
+        h.append(O.ok(p, "write", i % 4))
+        if with_reads:
+            h.append(O.invoke(p, "read", None))
+            h.append(O.ok(p, "read", i % 4))
+    return h

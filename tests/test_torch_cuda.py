@@ -1,4 +1,6 @@
-"""The port's CUDA kernel on the card against its plain PyTorch version.
+"""The port's CUDA kernels on the card against their plain PyTorch
+versions, and the torch-op engines on the card against the same engines
+on CPU tensors.
 
 Every test here is marked ``cuda`` and skips on a host without a card.
 The file imports nothing of JAX, so it runs on a card host that has no
@@ -13,12 +15,17 @@ import pytest
 import torch
 
 from comdb2_tpu_torch.checker import analysis
+from comdb2_tpu_torch.checker import batch as TB
 from comdb2_tpu_torch.checker import linear_torch as LT
+from comdb2_tpu_torch.checker import mxu as MXU
+from comdb2_tpu_torch.checker import pair_sort as PSORT
 from comdb2_tpu_torch.checker import seg_kernel as SK
 from comdb2_tpu_torch.models.memo import memo
 from comdb2_tpu_torch.models.model import cas_register
 from comdb2_tpu_torch.ops.packed import pack_history
 from comdb2_tpu_torch.ops.synth import mutate, register_history
+from comdb2_tpu_torch.ops.synth_columnar import wide_register_batch_packed
+from comdb2_tpu_torch.utils import next_pow2
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +111,110 @@ def test_chunked_boundary_on_the_card_matches_cpu(cuda):
     assert got[3][1] == want[3][1]
     assert SK.decode_frontier(spec, got[3][0], p) == \
         SK.decode_frontier(spec, want[3][0], p)
+
+
+def _mixed_batch(n_events=400):
+    """5-process valid and mutated histories with two 8-process
+    histories that overflow the kernel's 128 configs in the middle."""
+    rng = random.Random(5)
+    hs = []
+    for i in range(8):
+        h = register_history(rng, n_procs=5, n_events=n_events, values=5,
+                             p_info=0.0)
+        hs.append(mutate(rng, h, values=5) if i % 2 else h)
+    for seed in (0, 2):
+        hs.insert(4, register_history(random.Random(seed), n_procs=8,
+                                      n_events=160, values=5, p_info=0.0,
+                                      max_pending=8))
+    return TB.pack_batch(hs, cas_register())
+
+
+@pytest.mark.parametrize("groups", [1, 3])
+def test_stream_kernel_matches_plain_version(cuda, groups):
+    tb = _mixed_batch()
+    streams, _ = TB._stream_segments(tb)
+    sizes = dict(n_states=tb.memo.n_states,
+                 n_transitions=tb.memo.n_transitions)
+    spec = TB._slice_spec(streams, sizes)
+    seg, plan, _ = SK.pack_groups(streams, spec, groups)
+    seg = torch.from_numpy(seg)
+    table = torch.from_numpy(SK.pack_table(tb.memo.succ))
+    n_hist = max(len(g) for g in plan)
+    work = torch.zeros(len(plan), dtype=torch.int64, device=cuda)
+    before = SK.STREAM_LAUNCHES
+    got = SK.seg_search_stream(seg.to(cuda), sizes["n_transitions"],
+                               table.to(cuda), spec, n_hist, work=work)
+    torch.cuda.synchronize()
+    assert SK.STREAM_LAUNCHES == before + 1
+    want = SK.seg_search_stream(seg, sizes["n_transitions"], table, spec,
+                                n_hist)
+    assert torch.equal(got.cpu(), want)
+    for g in range(len(plan)):
+        w: dict = {}
+        SK.seg_search_reference(
+            seg[g], 0, sizes["n_transitions"],
+            torch.from_numpy(SK.initial_frontier(spec)),
+            torch.from_numpy(SK._init_stat()), table, spec, work=w,
+            results=torch.zeros((n_hist, 3), dtype=torch.int32))
+        assert int(work[g]) == w.get("compares", 0)
+    st = want[:, :, 0].flatten().tolist()
+    assert LT.INVALID in st and LT.UNKNOWN in st
+
+
+@pytest.mark.parametrize("B,N", [(64, 2048), (3, 8192), (2, 65536),
+                                 (4, 131072), (5, 2)])
+def test_pair_sort_kernel_matches_plain_version(cuda, B, N):
+    g = torch.Generator().manual_seed(B * N)
+    hi = torch.randint(-8, 8, (B, N), generator=g, dtype=torch.int32)
+    lo = torch.randint(-2**31, 2**31 - 1, (B, N), generator=g,
+                       dtype=torch.int32)
+    hi[:, :N // 4] = 1 << 30                  # block sentinels
+    lo[:, :N // 4] = 5
+    before = PSORT.LAUNCHES
+    got = PSORT.pair_sort(hi.to(cuda), lo.to(cuda))
+    torch.cuda.synchronize()
+    assert PSORT.LAUNCHES == before + 1
+    want = PSORT.pair_sort_reference(hi, lo)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_check_batch_on_the_card_matches_cpu(cuda):
+    tb = _mixed_batch()
+    before = PSORT.LAUNCHES
+    info: dict = {}
+    got = TB.check_batch(tb, F=1024, device="cuda", info=info)
+    assert info["engine"] == "stream"
+    assert info["escalated"]["engine"] == "keys"
+    assert PSORT.LAUNCHES > before
+    want = TB.check_batch(tb, F=1024, device="cpu")
+    for a, b in zip(got, want):
+        assert a.tolist() == b.tolist()
+
+
+def test_seg2_and_keys_on_the_card_match_cpu(cuda):
+    h = register_history(random.Random(0), n_procs=8, n_events=400,
+                         values=5, p_info=0.0, max_pending=8)
+    packed = pack_history(h)
+    mm = memo(cas_register(), packed)
+    segs, p = LT.remap_slots(LT.make_segments(packed, k_pad=8))
+    P = max(p + (p & 1), 2)
+    kw = dict(F=1024, Fs=32, P=P, n_states=mm.n_states,
+              n_transitions=mm.n_transitions)
+    args = (mm.succ, segs.inv_proc, segs.inv_tr, segs.ok_proc, segs.depth)
+    assert LT.check_device_seg2(*args, device="cuda", **kw) == \
+        LT.check_device_seg2(*args, device="cpu", **kw)
+
+
+def test_mxu_on_the_card_matches_cpu(cuda):
+    p = wide_register_batch_packed(47, 1, n_waves=2, n_chain=7, n_free=9,
+                                   values=16)[0]
+    mm = memo(cas_register(), p)
+    segs, pe = LT.remap_slots(LT.make_segments(p, s_pad=64, k_pad=4))
+    succ = LT.pad_succ(mm.succ, next_pow2(mm.n_states),
+                       next_pow2(mm.n_transitions))
+    args = (succ, segs.inv_proc, segs.inv_tr, segs.ok_proc, segs.depth)
+    kw = dict(F=1024, P=pe, n_states=mm.n_states,
+              n_transitions=mm.n_transitions)
+    assert MXU.check_device_mxu(*args, device="cuda", **kw) == \
+        MXU.check_device_mxu(*args, device="cpu", **kw)

@@ -31,12 +31,15 @@ def _all_modules():
 def test_package_has_the_slice_modules():
     mods = set(_all_modules())
     for m in ("ops.edn", "ops.history", "ops.packed", "ops.columnar",
-              "ops.synth", "models.memo", "obs.trace",
-              "checker.linear_host", "checker.linear_torch",
+              "ops.synth", "ops.synth_columnar", "models.memo",
+              "obs.trace", "checker.linear_host", "checker.linear_torch",
               "checker.seg_kernel", "checker.counterexample",
-              "checker.linear", "kernels.build", "convert", "filetest"):
+              "checker.linear", "checker.mxu", "checker.batch",
+              "checker.pair_sort", "kernels.build", "convert",
+              "filetest"):
         assert f"comdb2_tpu_torch.{m}" in mods, m
-    assert (PKG / "kernels" / "seg_search.cu").exists()
+    for src in ("seg_search.cu", "pair_sort.cu"):
+        assert (PKG / "kernels" / src).exists(), src
 
 
 def test_import_pulls_in_no_jax_in_a_fresh_interpreter():

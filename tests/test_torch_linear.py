@@ -1,13 +1,20 @@
 """The port's single-history check end to end against the JAX package:
 the chunked kernel path (boundary frontier and ``done`` against the
 TPU kernel's chunked scan in Pallas interpret mode), ``analysis``
-verdicts, fail indices, counterexample configs and paths, the filetest
-exit codes, and the two gaps that are not ported yet (gate-rejected
-shapes raise, overflow is UNKNOWN with the attempt recorded)."""
+verdicts, fail indices, engines and capacities, counterexample configs
+and paths, and the filetest exit codes — including the two shapes past
+the kernel: a gate-rejected wide history (the MXU frontier engine) and
+a kernel overflow (the seg2 capacity ladder).
+
+On this host the JAX package's fused kernel does not run (it is
+unavailable on the CPU outside interpret mode), so its ladder starts at
+the XLA engines; the port's starts at its kernel's plain version, whose
+attempt is the first entry of ``engines_tried``."""
 
 import random
 
 import pytest
+import torch
 
 import comdb2_tpu.checker.linear_jax as LJ
 from comdb2_tpu.checker import analysis as jax_analysis
@@ -17,11 +24,26 @@ from comdb2_tpu.models.memo import memo as jax_memo
 from comdb2_tpu.ops import synth as JS
 from comdb2_tpu.ops.packed import pack_history as jax_pack
 
+from comdb2_tpu import filetest as jax_filetest
+from comdb2_tpu.ops import op as JO
+
 from comdb2_tpu_torch import convert, filetest
-from comdb2_tpu_torch.checker import EngineNotPorted, analysis
+from comdb2_tpu_torch.checker import analysis
 from comdb2_tpu_torch.checker import seg_kernel as SK
+from comdb2_tpu_torch.checker.linear import REFERENCE_ENGINES
 from comdb2_tpu_torch.models import model as TM
+from comdb2_tpu_torch.ops import synth as TS
 from comdb2_tpu_torch.ops.history import history_to_edn
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Eager CPU torch ops here are tiny; one intra-op thread keeps them
+    off a busy host's thread pool. Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture()
@@ -134,48 +156,98 @@ def test_host_backend_matches():
         (b.valid, b.op_index, b.configs, b.info.get("paths"))
 
 
+def _ladder_parity(a, b, kernel_tried):
+    """Verdict, op index, mapped engine, capacity and ``engines_tried``
+    of the port's ``b`` against the JAX package's ``a``."""
+    assert (b.valid, b.op_index, b.final_count) == \
+        (a.valid, a.op_index, a.final_count)
+    assert b.info["engine"] == REFERENCE_ENGINES[a.info["engine"]]
+    assert b.info["frontier_capacity"] == a.info["frontier_capacity"]
+    mapped = [{"engine": REFERENCE_ENGINES[t["engine"]],
+               "frontier_capacity": t["frontier_capacity"]}
+              for t in a.info.get("engines_tried", [])]
+    first = ([{"engine": "seg-reference", "frontier_capacity": SK.F}]
+             if kernel_tried else [])
+    assert b.info.get("engines_tried", []) == first + mapped
+    assert b.configs == a.configs
+    assert b.info.get("paths") == a.info.get("paths")
+
+
 def test_overflow_is_unknown_with_the_attempt_recorded():
+    """A kernel overflow escalates through the seg2 capacity ladder: the
+    Random(77) history is VALID at capacity 8192 in both packages, and
+    the kernel's attempt at 128 is recorded first."""
     h = JS.register_history(random.Random(77), n_procs=10, n_events=600,
                             values=5, p_info=0.0, max_pending=10)
+    a = jax_analysis(JM.cas_register(), h, backend="device")
     b = analysis(TM.cas_register(), h, backend="device", device="cpu")
-    assert b.valid == "unknown"
-    assert b.info["engines_tried"] == [
-        {"engine": "seg-reference", "frontier_capacity": 128}]
-    assert "frontier overflow" in b.info["cause"]
-    # the JAX package's fused kernel gives up at the same op: its
-    # XLA engine at F=128 stands in for it on this host
-    packed = jax_pack(h)
-    mm = jax_memo(JM.cas_register(), packed)
-    segs = LJ.make_segments(packed, k_pad=8)
-    segs, p = LJ.remap_slots(segs)
-    st, fail, _ = LJ.check_device_seg2(
-        LJ.pad_succ(mm.succ, 8, 64), segs.inv_proc, segs.inv_tr,
-        segs.ok_proc, segs.depth, F=128, Fs=32, P=p,
-        n_states=mm.n_states, n_transitions=mm.n_transitions)
-    assert int(st) == LJ.UNKNOWN
-    assert b.op_index == int(segs.seg_index[int(fail)])
+    _ladder_parity(a, b, kernel_tried=True)
+    assert b.valid is True and b.info["engine"] == "torch-seg2"
+    assert b.info["frontier_capacity"] == 8192
+
+
+def _wide_parity(with_reads):
+    h = JS.pinned_wide_history(18, with_reads=with_reads)
+    a = jax_analysis(JM.cas_register(), h, backend="device")
+    b = analysis(TM.cas_register(),
+                 TS.pinned_wide_history(18, with_reads=with_reads),
+                 backend="device", device="cpu")
+    _ladder_parity(a, b, kernel_tried=False)
+    assert b.info["engine"] == "mxu-frontier" and b.valid is True
+    assert b.info["effective_slots"] == 19
 
 
 def test_shape_outside_the_kernel_gate_raises():
-    from comdb2_tpu.ops.synth import pinned_wide_history
+    """19 open slots: past the kernel's gate, so no kernel attempt; the
+    MXU frontier engine decides, as in the JAX package."""
+    _wide_parity(with_reads=False)
 
-    h = pinned_wide_history(18, with_reads=False)     # 19 open slots
-    with pytest.raises(EngineNotPorted, match="does not serve"):
-        analysis(TM.cas_register(), h, backend="device", device="cpu")
+
+def test_shape_outside_the_kernel_gate_with_reads():
+    """The same 19 open slots with reads in flight: the MXU engine
+    decides, as in the JAX package."""
+    _wide_parity(with_reads=True)
+
+
+def test_wide_invalid_counterexample_through_the_seg2_rescan():
+    """A P > 15 INVALID history: the kernel cannot re-scan it, so the
+    counterexample comes from the seg2 engine's chunked re-scan, with
+    the reference's op index and paths."""
+    h = JS.mutate(random.Random(5), JS.pinned_wide_history(18))
+    a = jax_analysis(JM.cas_register(), h, backend="device")
+    b = analysis(TM.cas_register(), h, backend="device", device="cpu")
+    _ladder_parity(a, b, kernel_tried=False)
+    assert b.valid is False and b.info["paths"] and b.configs
+
+
+def _past_every_rung(O):
+    """UNKNOWN in both packages: 130 distinct writes put the memo table
+    past the kernel's gate and the MXU engine's caps, then 17 reads of
+    one write in flight together fork 2^17 configs, past the seg2
+    ladder's top capacity of 65536."""
+    h = []
+    for v in range(130):
+        h += [O.invoke(0, "write", v), O.ok(0, "write", v)]
+    h.append(O.invoke(0, "write", 500))
+    h += [O.invoke(p, "read", None) for p in range(1, 18)]
+    h.append(O.ok(0, "write", 500))
+    h += [O.ok(p, "read", 500) for p in range(1, 18)]
+    return h
 
 
 @pytest.mark.parametrize("kind,want", [("valid", 0), ("invalid", 1),
                                        ("unknown", 2)])
 def test_filetest_exit_codes(tmp_path, kind, want):
+    """The port's filetest and the JAX package's agree on the exit
+    code of the same EDN file."""
     if kind == "valid":
         h = JS.register_history(random.Random(1), n_procs=4,
                                 n_events=300, p_info=0.0)
     elif kind == "invalid":
         h = _invalid(92, n_procs=4, n_events=300, values=3, p_info=0.0)
     else:
-        h = JS.register_history(random.Random(77), n_procs=10,
-                                n_events=600, values=5, p_info=0.0,
-                                max_pending=10)
+        h = _past_every_rung(JO)
     p = tmp_path / "h.edn"
     p.write_text(history_to_edn(h))
     assert filetest.main([str(p), "--device", "cpu"]) == want
+    assert jax_filetest.main([str(p)]) == want
