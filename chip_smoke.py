@@ -33,8 +33,9 @@ Batch requests (``check_batch``), counted as a second path:
 
 - (g) the north star: 4096 histories x 2000 ops
   (``register_batch_packed(11_000_000, ...)``) at F=128, all VALID
-  through the stream kernel on at least 132 CTAs; then ``bench.py``'s
-  256 x 800-event batch (``Random(7)``) at F=256;
+  through the stream kernel on at least 132 warp streams (one warp per
+  group stream); then ``bench.py``'s 256 x 800-event batch
+  (``Random(7)``) at F=256;
 - (h) 56 histories: valid and mutated 5-process histories with eight
   8-process histories that overflow the kernel's 128 configs; at
   F=8192 the overflowed lanes escalate through the keys engine (the
@@ -48,20 +49,39 @@ Batch requests (``check_batch``), counted as a second path:
   lanes escalate through the MXU frontier engine, not the pair sort;
   every lane must equal its own ``analysis`` on the card.
 
+Every request's verdict, op index, engine and frontier capacity must be
+the ones earlier runs of this script recorded (``RECORDED``).
+
 Then: (d') the seg2 engine on the card against the same engine on CPU
 tensors for history (d); kernel parity on the card for ``seg_search``
-(windows of (a)-(d)), ``seg_search[stream]`` (request (h)'s whole
+(windows of (a)-(d); the 64-segment stretch of (c)'s head window whose
+closures are the largest, found by the plain version; and
+``concurrent_writes(k)`` histories whose closures take the kernel's
+rarest paths, its widest register merges and its shared-memory union
+sort), ``seg_search[stream]`` (request (h)'s whole
 launch, two of request (g)'s own group streams launched together at
-(g)'s layout, and one group stream of nine (h) histories with an
-INVALID and an overflowing one in the middle) and ``pair_sort`` (the
+(g)'s layout, one group stream of nine (h) histories with an INVALID
+and an overflowing one in the middle, and SMs x 8 copies of a group
+stream whose largest closures take the CTA's locked buffer, 8 warps to
+a CTA) and ``pair_sort`` (the
 widest rows the keys engine sorted in (h), and random rows at the
 shared-memory and the global-memory widths).
 
 Each kernel's bound counts what its function needs on this run's
-inputs, whatever algorithm the kernel chose: bytes read once and
-written once at the HBM rate, and comparisons of int32 words (sorting
-m keys takes m * floor(log2 m), finding duplicates m - 1) at the card's
-int32 rate, 64 INT32 lanes per SM x SMs x the maximum SM clock.
+inputs: bytes read once and written once at the HBM rate, and
+comparisons of int32 words at the card's int32 rate, 64 INT32 lanes per
+SM x SMs x the maximum SM clock. For ``seg_search`` the comparisons are
+``seg_kernel.needed_compares``: per closure iteration over n sorted
+frontier keys, one binary search of ceil(log2(n + 1)) for each of the
+n P expansions, and u ceil(log2 u) to sort the u keys it added; the
+kernel's own ``need`` counter is held equal to that count wherever the
+plain version runs, and gives it for (g), where it does not. For
+``pair_sort``, N floor(log2 N) comparisons per row.
+
+It prints the kernel's schedule on the way: µs per segment and per
+closure iteration, the histogram of closure sizes M = next_pow2(n (P +
+1)) over (a)'s head window, and for (g) the warp streams per SM, the
+group count G and the most histories one stream runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -85,7 +105,44 @@ WINDOW = 4096          # segments per parity window
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64              # Hopper's INT32 units per SM
 G_HISTORIES, G_OPS = 4096, 2000      # (g), the batch north star
-MIN_CTAS = 132                       # the H100's SM count
+MIN_STREAMS = 132                    # the H100's SM count
+DEEP = 64              # segments of (c)'s deepest stretch
+# what earlier runs of this script recorded on the card (PERF.md): per
+# request (valid, op_index, engine, frontier capacity), None where not
+# pinned; statuses per batch
+RECORDED = {
+    "a": (True, None, "cuda-seg", 128),
+    "b": (False, 68941, "cuda-seg", 128),
+    "c": (True, None, "cuda-seg", 128),
+    "d": (True, None, "torch-seg2", 8192),
+    "f": (True, None, "mxu-frontier", 131072),
+}
+RECORDED_BATCHES = {"g": {0: G_HISTORIES}, "g2": {0: 256}, "h": {0: 50, 1: 6},
+               "h10": {0: 15, 1: 5}}
+
+
+class _MRecorder(dict):
+    """A ``work`` dict for ``seg_search_reference`` that also keeps the
+    key count m of every closure iteration, in order (its increments of
+    ``work["keys"]``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ms = []
+
+    def __setitem__(self, key, value):
+        if key == "keys":
+            self.ms.append(value - self.get("keys", 0))
+        super().__setitem__(key, value)
+
+
+def _m_histogram(ms):
+    """Closure iterations by M = next_pow2(m), m = n (P + 1) keys."""
+    by_m = {}
+    for m in ms:
+        M = 1 << max(m - 1, 0).bit_length()
+        by_m[M] = by_m.get(M, 0) + 1
+    return dict(sorted(by_m.items()))
 
 
 def _fail(msg: str) -> int:
@@ -170,7 +227,7 @@ def _parity(name, mm, packed, dev, record):
                                device=dev)
         part = seg[lo:hi]
         got = SK.seg_search(part, lo, stride, ws0, st0, table, spec)
-        work: dict = {}
+        work = _MRecorder()
         torch.cuda.synchronize()
         t = time.perf_counter()
         want = SK.seg_search_reference(part, lo, stride, ws0, st0, table,
@@ -191,9 +248,31 @@ def _parity(name, mm, packed, dev, record):
         if lo == 0:
             ms = _time_cuda(lambda: SK._launch(part, 0, stride, ws0, st0,
                                                table, spec), 5)
+            need = torch.zeros(1, dtype=torch.int64, device=dev)
+            SK._launch(part, 0, stride, ws0, st0, table, spec, need=need)
+            if int(need) != SK.needed_compares(work.ms, spec.P):
+                raise AssertionError(
+                    f"{name}: the kernel's need {int(need)} != "
+                    f"{SK.needed_compares(work.ms, spec.P)}")
             nbytes = 4 * (part.numel() + 2 * ws0.numel() + 2 * st0.numel()
                           + table.numel())
             head = (ms, plain_ms, work, nbytes, spec)
+            live = int((part[:, 0] >= 0).sum())
+            by_m = _m_histogram(work.ms)
+            record["schedule"] = {
+                "segments": hi, "live_segments": live,
+                "iterations": len(work.ms), "us_per_segment":
+                    ms * 1e3 / max(live, 1),
+                "us_per_iteration": ms * 1e3 / max(len(work.ms), 1),
+                "M_histogram": by_m, "compares": work.get("compares", 0),
+                "need": int(need)}
+            print(f"  {name} head window: {ms:.3f} ms, "
+                  f"{ms * 1e3 / max(live, 1):.3f} µs per live segment "
+                  f"({live}), {ms * 1e3 / max(len(work.ms), 1):.3f} µs per "
+                  f"closure iteration ({len(work.ms)}); closure sizes M = "
+                  f"next_pow2(n (P+1)): {by_m}; comparisons: "
+                  f"{work.get('compares', 0)} counted by the plain version, "
+                  f"{int(need)} needed")
     record["parity"] = {"full_stream": {"segments": S, "real": s_real,
                                         "result": full[:3],
                                         "kernel_ms": ms_full},
@@ -207,6 +286,164 @@ def _parity(name, mm, packed, dev, record):
           f"(CUDA events, mean of 3); P={spec.P} rows={spec.rows} "
           f"words={spec.n_words}")
     return head, err
+
+
+def _deep_window(mm, packed, dev, record):
+    """The DEEP-segment stretch of the head window whose closures are
+    the largest, found by the plain version run in stretches through its
+    own carry; then the kernel on that stretch from its own carry, held
+    bit-equal to the plain version. Returns the stretch's largest
+    closure m and the kernel's largest (status, fail, n) difference."""
+    import torch
+
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+
+    (spec, seg, ws, stat, table), _ = _path_inputs(mm, packed, dev)
+    stride = mm.n_transitions
+    carry_ws, carry_st = ws, stat
+    best_m, best_lo = -1, 0
+    for lo in range(0, min(WINDOW, seg.shape[0]), DEEP):
+        rec = _MRecorder()
+        st_, fa_, n_, carry_ws = SK.seg_search_reference(
+            seg[lo:lo + DEEP], lo, stride, carry_ws, carry_st, table, spec,
+            work=rec)
+        carry_st = torch.tensor([st_, fa_, n_, -1], dtype=torch.int32,
+                                device=dev)
+        if rec.ms and max(rec.ms) > best_m:
+            best_m, best_lo = max(rec.ms), lo
+        if st_ != SK.VALID:
+            break
+    lo, hi = best_lo, best_lo + DEEP
+    st_, fa_, n_, ws0 = SK.seg_search(seg[:lo], 0, stride, ws, stat, table,
+                                      spec)
+    st0 = torch.tensor([st_, fa_, n_, -1], dtype=torch.int32, device=dev)
+    part = seg[lo:hi]
+    got = SK.seg_search(part, lo, stride, ws0, st0, table, spec)
+    rec = _MRecorder()
+    want = SK.seg_search_reference(part, lo, stride, ws0, st0, table, spec,
+                                   work=rec)
+    same = got[:3] == want[:3] and (SK.decode_frontier(spec, got[3], spec.P)
+                                    == SK.decode_frontier(spec, want[3],
+                                                          spec.P))
+    ms = _time_cuda(lambda: SK._launch(part, lo, stride, ws0, st0, table,
+                                       spec), 5)
+    by_m = _m_histogram(rec.ms)
+    record["deep_window"] = {"segments": [lo, hi], "kernel": got[:3],
+                             "plain": want[:3], "equal": same,
+                             "max_m": max(rec.ms), "M_histogram": by_m,
+                             "kernel_ms": ms}
+    print(f"  c deepest stretch [{lo}, {hi}): parity "
+          f"{'ok' if same else 'FAIL'}, largest closure m={max(rec.ms)}, "
+          f"closure sizes {by_m}; kernel {ms:.3f} ms")
+    if not same:
+        raise AssertionError(f"(c) deepest stretch: kernel {got[:3]} != "
+                             f"plain {want[:3]} on [{lo}, {hi})")
+    if max(rec.ms) <= 512:
+        raise AssertionError("(c)'s deepest stretch has no closure past "
+                             "512 keys")
+    err = max(abs(got[0] - want[0]), abs(got[1] - want[1]),
+              abs(got[2] - want[2]))
+    return max(rec.ms), err
+
+
+def _rare_paths(dev, record):
+    """The kernel on ``concurrent_writes(k)``: merges of 4 and 8 new keys
+    per lane (k = 6, 7) and the union path, more than 256 new
+    candidates sorted in the CTA's locked buffer (k = 8, with 2-word and,
+    at P = 15, 3-word keys), to the overflow; held bit-equal to the plain
+    version, frontier included. Returns the largest difference."""
+    import torch
+
+    from comdb2_tpu_torch.checker import linear_torch as LT
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.models.memo import memo
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.packed import pack_history
+    from comdb2_tpu_torch.ops.synth import concurrent_writes
+
+    err, rows = 0, []
+    for k, P in ((6, 1), (7, 1), (8, 1), (8, 15)):
+        packed = pack_history(concurrent_writes(k), completed=True)
+        mm = memo(cas_register(), packed)
+        segs, p = LT.remap_slots(LT.make_segments(packed, k_pad=8))
+        spec = SK.spec_for(mm.n_states, mm.n_transitions, max(p, P), 8)
+        args = [torch.from_numpy(a).to(dev) for a in (
+            SK.pack_segments(segs, spec), SK.initial_frontier(spec),
+            SK._init_stat(), SK.pack_table(mm.succ))]
+        seg, ws, stat, table = args
+        got = SK.seg_search(seg, 0, mm.n_transitions, ws, stat, table, spec)
+        want = SK.seg_search_reference(seg, 0, mm.n_transitions, ws, stat,
+                                       table, spec)
+        same = got[:3] == want[:3] and (
+            SK.decode_frontier(spec, got[3], spec.P)
+            == SK.decode_frontier(spec, want[3], spec.P))
+        rows.append({"k": k, "P": spec.P, "words": spec.n_words,
+                     "kernel": got[:3], "plain": want[:3], "equal": same})
+        if not same:
+            raise AssertionError(f"concurrent_writes({k}) P={spec.P}: "
+                                 f"kernel {got[:3]} != plain {want[:3]}")
+        err = max(err, *(abs(a - b) for a, b in zip(got[:3], want[:3])))
+    record["rare_paths"] = rows
+    print(f"  rare paths (concurrent writes, k = 6, 7, 8, 8 at P = 15): "
+          f"bit-equal {[(r['k'], r['words'], r['kernel']) for r in rows]}")
+    return err
+
+
+def _contended_union(dev, record):
+    """The stream kernel with every warp of every CTA competing for its
+    CTA's locked large-closure buffer: SMs x 8 copies of one group
+    stream, ``concurrent_writes(8)`` twice and then a (c)-family history
+    (closures of up to 864 keys at P = 8), so the launch runs 8 warps to
+    a CTA. Every stream's results, work and need must equal the plain
+    version's on that group. Returns the largest difference."""
+    import torch
+
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.packed import pack_history
+    from comdb2_tpu_torch.ops.synth import concurrent_writes, register_history
+
+    rng = random.Random(1010)
+    c_hist = [register_history(rng, n_procs=10, n_events=300, values=5,
+                               p_info=0.0, max_pending=5)
+              for _ in range(2)][1]
+    cw = pack_history(concurrent_writes(8), completed=True)
+    tb = TB.pack_batch([cw, cw, c_hist], cas_register())
+    streams, _ = TB._stream_segments(tb)
+    stride = tb.memo.n_transitions
+    spec = TB._slice_spec(streams, dict(n_states=tb.memo.n_states,
+                                        n_transitions=stride))
+    one, _, _ = SK.pack_groups(streams, spec, 1)
+    table = torch.from_numpy(SK.pack_table(tb.memo.succ)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = sms * SK.WARPS_PER_CTA
+    seg = torch.from_numpy(one).to(dev).expand(G, *one.shape[1:]).contiguous()
+    work = torch.zeros(G, dtype=torch.int64, device=dev)
+    need = torch.zeros_like(work)
+    got = SK.seg_search_stream(seg, stride, table, spec, 3, work=work,
+                               need=need)
+    torch.cuda.synchronize()
+    want = torch.zeros((3, 3), dtype=torch.int32, device=dev)
+    rec = _MRecorder()
+    SK.seg_search_reference(seg[0], 0, stride,
+                            torch.from_numpy(SK.initial_frontier(spec)).to(dev),
+                            torch.from_numpy(SK._init_stat()).to(dev), table,
+                            spec, work=rec, results=want)
+    geometry = SK.launch_geometry(G, sms)
+    same = (bool((got == want).all()) and bool((work == rec["compares"]).all())
+            and bool((need == SK.needed_compares(rec.ms, spec.P)).all()))
+    record["contended_union"] = {
+        "streams": G, "launch_geometry": geometry, "P": spec.P,
+        "max_m": max(rec.ms), "plain": want.tolist(), "equal": same}
+    print(f"  stream, every warp of {geometry[0]} CTAs x {geometry[1]} "
+          f"warps on the locked union (closures up to m={max(rec.ms)}, "
+          f"P={spec.P}): {'bit-equal' if same else 'DIFFERENT'} (status, "
+          f"fail, n), work and need")
+    if not same or geometry[1] != SK.WARPS_PER_CTA or max(rec.ms) <= 512:
+        raise AssertionError(
+            f"contended union: {record['contended_union']}")
+    return int((got.long() - want.long()).abs().max())
 
 
 def _int32_ops_per_s(dev) -> float:
@@ -435,6 +672,12 @@ def main() -> int:
          f"(f) not VALID from mxu-frontier at 131072: {results['f']}"),
         (launches > 0, "the single-history path launched no kernel"),
     ]
+    for name, res in (("a", a), ("b", b), ("c", c), ("d", d), ("f", f)):
+        want = RECORDED[name]
+        got = (res.valid, res.op_index if want[1] is not None else None,
+               res.info.get("engine"), res.info.get("frontier_capacity"))
+        checks.append((got == want, f"({name}) {got} differs from the "
+                                    f"recorded {want}"))
     for ok, msg in checks:
         if not ok:
             return _fail(msg)
@@ -557,9 +800,9 @@ def main() -> int:
                                             if s_ == LT.INVALID)
     checks = [
         (bool((st_g == LT.VALID).all()) and info_g.get("engine") == "stream"
-         and info_g["stream"]["groups"] >= MIN_CTAS,
-         f"(g) not all VALID through the stream kernel on >= {MIN_CTAS} "
-         f"CTAs: {batch_res['g']}"),
+         and info_g["stream"]["groups"] >= MIN_STREAMS,
+         f"(g) not all VALID through the stream kernel on >= {MIN_STREAMS} "
+         f"warp streams: {batch_res['g']}"),
         (bool((st_g2 == LT.VALID).all())
          and info_g2.get("engine") == "stream",
          f"(g2) not all VALID through the stream kernel: "
@@ -581,6 +824,9 @@ def main() -> int:
          f"their single-history analysis: "
          f"{[lanes10[i] for i in mismatched10]}"),
         (stream_launches > 0, "the batch path launched no stream kernel"),
+        *[(batch_res[k]["status_counts"] == v, f"({k}) statuses "
+           f"{batch_res[k]['status_counts']} differ from the recorded {v}")
+          for k, v in RECORDED_BATCHES.items()],
         (sort_launches > 0, "the batch path launched no pair_sort"),
     ]
     for ok, msg in checks:
@@ -601,12 +847,17 @@ def main() -> int:
         max_err = max(max_err, err)
         if name == "a":
             head = hd
+        if name == "c":
+            _, err = _deep_window(mm, packed, dev, results["c"])
+            max_err = max(max_err, err)
+    max_err = max(max_err, _rare_paths(dev, results))
     tier = results["d"]["parity"]["spec"]
     if (tier["rows"], tier["n_words"]) != (16, 3):
         return _fail(f"(d) did not run the 16-row, 3-word tier: {tier}")
     ms, plain_ms, work, nbytes, spec = head
     bound_ms, bound_by = _bound(
-        nbytes, work.get("compares", 0) * spec.n_words, int32_rate)
+        nbytes, SK.needed_compares(work.ms, spec.P) * spec.n_words,
+        int32_rate)
     entries = [{
         "name": "seg_search", "route": "cuda",
         "source": "comdb2_tpu_torch/kernels/seg_search.cu",
@@ -643,45 +894,49 @@ def main() -> int:
 
     def stream_check(label, seg, stride, table, spec_b, n_hist):
         """Kernel vs plain version on one launch: bit-equal results per
-        history and per-CTA work. Returns (results, work, plain ms,
-        max abs err)."""
+        history, and per-stream work and need. Returns (results, work,
+        need, plain ms, max abs err)."""
         work_k = torch.zeros(seg.shape[0], dtype=torch.int64, device=dev)
+        need_k = torch.zeros_like(work_k)
         got_k = SK.seg_search_stream(seg, stride, table, spec_b, n_hist,
-                                     work=work_k)
+                                     work=work_k, need=need_k)
         torch.cuda.synchronize()
         want_k = torch.zeros_like(got_k)
         ws0 = torch.from_numpy(SK.initial_frontier(spec_b)).to(dev)
         st0 = torch.from_numpy(SK._init_stat()).to(dev)
-        cmp_k = []
+        recs = []
         t0 = time.perf_counter()
         for g_ in range(seg.shape[0]):
-            w_: dict = {}
+            recs.append(_MRecorder())
             SK.seg_search_reference(seg[g_], 0, stride, ws0, st0, table,
-                                    spec_b, work=w_, results=want_k[g_])
-            cmp_k.append(w_.get("compares", 0))
+                                    spec_b, work=recs[-1],
+                                    results=want_k[g_])
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t0) * 1e3
         err_k = int((got_k.long() - want_k.long()).abs().max())
-        same = torch.equal(got_k, want_k) and work_k.tolist() == cmp_k
-        print(f"  stream {label}: {seg.shape[0]} CTAs x {seg.shape[1]} "
-              f"rows, {n_hist} histories per CTA at most: "
-              f"{'bit-equal' if same else 'DIFFERENT'} (status, fail, n) "
-              f"and work; plain version {plain:.1f} ms")
+        same = (torch.equal(got_k, want_k)
+                and work_k.tolist() == [r.get("compares", 0) for r in recs]
+                and need_k.tolist() == [SK.needed_compares(r.ms, spec_b.P)
+                                        for r in recs])
+        print(f"  stream {label}: {seg.shape[0]} streams x {seg.shape[1]} "
+              f"rows, {n_hist} histories per stream at most: "
+              f"{'bit-equal' if same else 'DIFFERENT'} (status, fail, n), "
+              f"work and need; plain version {plain:.1f} ms")
         if not same:
             raise AssertionError(f"seg_search[stream] differs from its "
                                  f"plain version on {label}")
-        return got_k, work_k, plain, err_k
+        return got_k, work_k, need_k, plain, err_k
 
     (streams_h, stride_h, spec_h, table_h, seg_h, plan_h,
      _) = stream_inputs(batch_h, info_h)
     nh_h = max(len(g_) for g_ in plan_h)
-    got_h, work_h, plain_ms_s, err_s = stream_check(
+    got_h, work_h, need_h, plain_ms_s, err_s = stream_check(
         "(h) whole launch", seg_h, stride_h, table_h, spec_h, nh_h)
     ms_s = _time_cuda(lambda: SK.seg_search_stream(
         seg_h, stride_h, table_h, spec_h, nh_h), 5)
     bound_s, by_s = _bound(4 * (seg_h.numel() + table_h.numel()
                                 + got_h.numel()),
-                           int(work_h.sum()) * spec_h.n_words, int32_rate)
+                           int(need_h.sum()) * spec_h.n_words, int32_rate)
 
     five = [i for i in range(len(hs_h)) if len(batch_h.packeds[i]
                                                   .process_table) == 5]
@@ -690,7 +945,7 @@ def main() -> int:
     over = [i for i in range(len(hs_h)) if i not in five]
     group = valid5[:3] + invalid5[:1] + over[:1] + valid5[3:7]
     seg_np, _, _ = SK.pack_groups([streams_h[i] for i in group], spec_h, 1)
-    got, _, _, e_ = stream_check(
+    got, _, _, _, e_ = stream_check(
         f"one group of {len(group)} (h) histories",
         torch.from_numpy(seg_np).to(dev), stride_h, table_h, spec_h,
         len(group))
@@ -701,19 +956,22 @@ def main() -> int:
             any(v[0] != LT.VALID for v in verdicts[:3] + verdicts[5:]):
         return _fail(f"stream group verdicts out of place: {verdicts}")
 
+    err_s = max(err_s, _contended_union(dev, results))
+
     # the (g) launch itself, re-timed outside the counted path
     (streams_g, stride_g, spec_g, table_g, seg_g, plan_g,
      t_groups) = stream_inputs(batch_g, info_g)
     n_hist_g = max(len(g_) for g_ in plan_g)
     work_g = torch.zeros(seg_g.shape[0], dtype=torch.int64, device=dev)
+    need_g = torch.zeros_like(work_g)
     res_g = SK.seg_search_stream(seg_g, stride_g, table_g, spec_g,
-                                 n_hist_g, work=work_g)
+                                 n_hist_g, work=work_g, need=need_g)
     torch.cuda.synchronize()
     ms_g = _time_cuda(lambda: SK.seg_search_stream(
         seg_g, stride_g, table_g, spec_g, n_hist_g), 2)
     bound_g, by_g = _bound(4 * (seg_g.numel() + table_g.numel()
                                 + res_g.numel()),
-                           int(work_g.sum()) * spec_g.n_words, int32_rate)
+                           int(need_g.sum()) * spec_g.n_words, int32_rate)
     # two of (g)'s own group streams launched together: the longest,
     # and one holding a different number of histories (else the
     # shortest)
@@ -725,31 +983,42 @@ def main() -> int:
     gj = others[0] if others else min(range(len(plan_g)),
                                       key=lambda g_: real[g_])
     pick = torch.tensor([gi, gj], device=dev)
-    got2, work2, _, e_ = stream_check(
+    got2, work2, need2, _, e_ = stream_check(
         f"(g) groups {gi} and {gj} ({len(plan_g[gi])} and "
         f"{len(plan_g[gj])} histories, {real[gi]} and {real[gj]} rows)",
         seg_g[pick].contiguous(), stride_g, table_g, spec_g, n_hist_g)
     err_s = max(err_s, e_)
     if not (torch.equal(got2, res_g[pick])
-            and torch.equal(work2, work_g[pick])):
+            and torch.equal(work2, work_g[pick])
+            and torch.equal(need2, need_g[pick])):
         return _fail("(g)'s two group streams alone differ from the same "
                      "groups in the whole launch")
+    per_sm_g = SK.warp_streams_per_sm(spec_g, table_g.numel())
     batch_res["g"]["kernel"] = {
         "groups": int(seg_g.shape[0]), "rows_per_group": int(seg_g.shape[1]),
-        "histories_per_group_max": n_hist_g, "ms": ms_g,
+        "histories_per_group_max": n_hist_g, "warp_streams_per_sm": per_sm_g,
+        "launch_geometry": SK.launch_geometry(
+            int(seg_g.shape[0]),
+            torch.cuda.get_device_properties(dev).multi_processor_count),
+        "ms": ms_g,
         "bound_ms": bound_g, "bound_by": by_g,
-        "compares": int(work_g.sum()),
+        "compares": int(work_g.sum()), "need": int(need_g.sum()),
         "pack_groups_s": t_groups,
         "checked_ops_per_s": n_ops_g / (ms_g / 1e3)}
     batch_res["h"]["kernel"] = {
         "groups": int(seg_h.shape[0]), "rows_per_group": int(seg_h.shape[1]),
         "ms": ms_s, "plain_ms": plain_ms_s, "bound_ms": bound_s,
-        "bound_by": by_s, "compares": int(work_h.sum())}
-    print(f"  g kernel: {seg_g.shape[0]} CTAs x {seg_g.shape[1]} rows, "
+        "bound_by": by_s, "compares": int(work_h.sum()),
+        "need": int(need_h.sum())}
+    print(f"  g geometry: {per_sm_g} warp streams per SM, G = "
+          f"{seg_g.shape[0]} group streams, at most {n_hist_g} histories "
+          f"per stream; (CTAs, warps per CTA) = "
+          f"{batch_res['g']['kernel']['launch_geometry']}")
+    print(f"  g kernel: {seg_g.shape[0]} streams x {seg_g.shape[1]} rows, "
           f"{ms_g:.3f} ms (CUDA events, mean of 2), bound {bound_g:.5f} ms "
           f"({by_g}); {n_ops_g / (ms_g / 1e3):.0f} checked ops/s; "
           f"group packing {t_groups:.2f} s")
-    print(f"  h kernel: {seg_h.shape[0]} CTAs x {seg_h.shape[1]} rows, "
+    print(f"  h kernel: {seg_h.shape[0]} streams x {seg_h.shape[1]} rows, "
           f"{ms_s:.3f} ms (CUDA events, mean of 5), plain {plain_ms_s:.1f}"
           f" ms, bound {bound_s:.5f} ms ({by_s})")
     entries.append({
@@ -759,12 +1028,13 @@ def main() -> int:
         "launches": stream_launches, "max_abs_err": err_s,
         "ms": ms_s, "plain_ms": plain_ms_s, "bound_ms": bound_s,
         "bound_by": by_s, "library_ms": None,
-        "parity": "bit-equal (status, fail, n) per history and work",
+        "parity": "bit-equal (status, fail, n) per history, work and "
+                  "need",
         "measured_on": f"request (h)'s whole launch, "
-                       f"{int(seg_h.shape[0])} CTAs",
+                       f"{int(seg_h.shape[0])} warp streams",
         "batch_ms": ms_g, "batch_bound_ms": bound_g,
         "batch_bound_by": by_g,
-        "batch_measured_on": f"(g), {int(seg_g.shape[0])} CTAs"})
+        "batch_measured_on": f"(g), {int(seg_g.shape[0])} warp streams"})
 
     # pair_sort: the widest rows the keys engine sorted in (h), and
     # random rows at both widths

@@ -8,7 +8,7 @@ key) share one interned transition table and one memoized model, and
 check as ONE device computation:
 
 - engine ``stream``: every history through the segment-search kernel in
-  its RESET stream mode, G group streams on G CTAs
+  its RESET stream mode, G group streams, one warp each
   (:func:`~.seg_kernel.stream_dispatch`); histories that overflow the
   kernel's 128-config frontier escalate through ``keys`` / ``mxu`` at
   the caller's capacity F;
@@ -22,6 +22,16 @@ Escalation picks ``mxu`` when the batch's slot count, rounded up to a
 power of two, reaches ``mxu.MIN_P`` = 16 (any batch with more than 8
 processes), else ``keys`` when its key layout fits: the pair sort runs
 only for batches of at most 8 slots.
+
+The reference's shape floors (``n_pad`` of :func:`pack_batch`,
+``s_pad``/``k_pad`` of :func:`segment_batch`, and those with
+``n_states_pad``, ``n_transitions_pad`` and ``p_eff_pad`` of
+:func:`check_batch`) are taken with the same defaults and change no
+verdict. They bucket shapes so that XLA compiles one program per bucket;
+eager torch and the runtime-sized kernel launch compile nothing per
+shape, so they need none: ``n_pad``, ``s_pad`` and ``k_pad`` floor the
+host arrays as in the reference, and the table and slot floors are
+accepted and not used.
 
 Not ported yet: the ``flat`` and ``vmap`` engines, the mesh routes and
 ``pack_batch_masked`` raise :class:`~.linear.EngineNotPorted` where the
@@ -109,15 +119,17 @@ def _segments_of(p):
 
 @_obs.traced("batch.pack")
 def pack_batch(histories: Sequence[Union[Sequence[Op], PackedHistory]],
-               model: Model, max_states: int = 1 << 20,
+               model: Model, max_states: int = 1 << 20, n_pad: int = 0,
                build_streams: bool = True) -> PackedBatch:
     """Pack histories for :func:`check_batch`: transition ids are
     re-interned into one union table so all histories share a single
     memoized model; the BFS depth bound is the max invocation count
     over the batch.
 
-    ``build_streams=False`` skips the dense per-op (N, n_pad) step
-    streams, which only the (not yet ported) vmap engine reads."""
+    ``n_pad`` floors the per-op stream width (a power of two at least
+    the longest history). ``build_streams=False`` skips the dense
+    per-op (N, n_pad) step streams, which only the (not yet ported) vmap
+    engine reads."""
     packeds = [h if isinstance(h, PackedHistory) else pack_history(list(h))
                for h in histories]
     union: List[tuple] = []
@@ -140,7 +152,8 @@ def pack_batch(histories: Sequence[Union[Sequence[Op], PackedHistory]],
         empty = np.zeros((len(packeds), 0), np.int32)
         return PackedBatch(packeds=packeds, memo=mm, kind=empty,
                            proc=empty, tr=empty, P=P, remaps=remaps)
-    n_pad = _next_pow2(max((len(p) for p in packeds), default=1))
+    n_pad = max(n_pad, _next_pow2(max((len(p) for p in packeds),
+                                      default=1)))
     kinds, procs, trs = [], [], []
     for p, remap in zip(packeds, remaps):
         s = LT.make_stream(p, n_pad=n_pad)
@@ -168,18 +181,21 @@ class SegmentBatch:
 
 
 @_obs.traced("batch.segments")
-def segment_batch(batch: PackedBatch,
-                  streams: Optional[list] = None) -> SegmentBatch:
+def segment_batch(batch: PackedBatch, streams: Optional[list] = None,
+                  s_pad: int = 0, k_pad: int = 0) -> SegmentBatch:
     """Each history's per-ok segments (union transition ids), padded to
     a common (S, K). Malformed histories get an empty stream.
     ``streams``: per-history SegmentStreams already union-remapped (and
-    possibly slot-renamed), e.g. from :func:`_stream_segments`."""
+    possibly slot-renamed), e.g. from :func:`_stream_segments`.
+    ``s_pad``/``k_pad`` floor S and K (the maxima win when larger)."""
     prebuilt = streams is not None
     segss = streams if prebuilt else [
         _empty_stream() if _malformed(p) else _segments_of(p)
         for p in batch.packeds]
-    S = _next_pow2(max((s.ok_proc.shape[0] for s in segss), default=1))
-    K = _next_pow2(max((s.inv_proc.shape[1] for s in segss), default=1), 2)
+    S = max(_next_pow2(max((s.ok_proc.shape[0] for s in segss),
+                           default=1)), s_pad)
+    K = max(_next_pow2(max((s.inv_proc.shape[1] for s in segss),
+                           default=1), 2), k_pad)
     ips, its, ops, idxs, deps = [], [], [], [], []
     for remap, s in zip(batch.remaps, segss):
         ds, dk = S - s.ok_proc.shape[0], K - s.inv_proc.shape[1]
@@ -268,20 +284,29 @@ def _stream_stage(batch: PackedBatch, succ, sizes, device, info=None):
     return rs, segs_list
 
 
+#: the reference's table and slot floors, which ``check_batch`` and
+#: ``check_batch_async`` accept as keywords (default 0) and do not use:
+#: the port sizes the table and the slots from the batch
+REFERENCE_PADS = ("n_states_pad", "n_transitions_pad", "p_eff_pad")
+
+
 def check_batch(batch: PackedBatch, F: int = 256, mesh=None,
                 engine: str = "auto", info: Optional[dict] = None,
-                device=None):
+                s_pad: int = 0, k_pad: int = 0, device=None,
+                **reference_pads):
     """Run the batched device search (see :func:`check_batch_async`);
     malformed histories (double-pending process) come back ``unknown``.
-    Every axis (segments, invokes per segment, table, slots) is sized
-    from the batch itself."""
+    The ``*_pad`` floors are the reference's (see the module note):
+    they change no verdict."""
     return check_batch_async(batch, F=F, mesh=mesh, engine=engine,
-                             info=info, device=device)()
+                             info=info, s_pad=s_pad, k_pad=k_pad,
+                             device=device, **reference_pads)()
 
 
 def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
                       engine: str = "auto", info: Optional[dict] = None,
-                      device=None):
+                      s_pad: int = 0, k_pad: int = 0, device=None,
+                      **reference_pads):
     """Return a zero-argument ``finalize()`` producing ``(status[N],
     fail_at[N], n_final[N])`` NumPy arrays — fail_at in history-index
     terms.
@@ -294,9 +319,17 @@ def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
 
     The engines run when this is called (the batch is not sliced for
     host/device overlap yet): ``finalize`` only decodes and escalates.
-    ``info`` receives ``{"engine": name}`` for the path executed."""
+    ``info`` receives ``{"engine": name}`` for the path executed.
+    ``s_pad``/``k_pad`` floor the keys and MXU engines' segment axes;
+    the other keywords the reference takes (:data:`REFERENCE_PADS`) are
+    accepted and not used, and any other keyword raises ``TypeError``."""
+    unknown = sorted(set(reference_pads) - set(REFERENCE_PADS))
+    if unknown:
+        raise TypeError(f"check_batch got unexpected keyword arguments "
+                        f"{unknown}")
     fin = _check_batch_begin(batch, F=F, mesh=mesh, engine=engine,
-                             info=info, device=device)
+                             info=info, device=device, s_pad=s_pad,
+                             k_pad=k_pad)
 
     def finalize():
         status, fail_at, n_final = fin()
@@ -314,7 +347,8 @@ def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
 
 
 def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
-                       info: Optional[dict], device):
+                       info: Optional[dict], device, s_pad: int = 0,
+                       k_pad: int = 0):
     """Engine selection, host packing and the device run; returns the
     finalize closure (fail-index decode, kernel overflow escalation)."""
     if mesh is not None:
@@ -389,7 +423,7 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                     sub_info: dict = {}
                     st2, fa2, n2 = check_batch(
                         sub, F=F, engine=esc_engine, info=sub_info,
-                        device=dev)
+                        s_pad=s_pad, k_pad=k_pad, device=dev)
                     status, fail_at, n_final = merge_escalation(
                         status, fail_at, n_final, unk, st2, fa2, n2)
                     if info is not None:
@@ -411,7 +445,8 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
         F = MXU.bucket_F(F)
         if info is not None:
             info["frontier_capacity"] = F
-    sb = segment_batch(batch, streams=prebuilt_streams)
+    sb = segment_batch(batch, streams=prebuilt_streams, s_pad=s_pad,
+                       k_pad=k_pad)
     fn = (MXU.check_device_mxu_batch if engine == "mxu"
           else LT.check_device_keys)
     status_d, fail_seg_d, n_final_d = fn(

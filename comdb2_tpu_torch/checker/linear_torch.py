@@ -603,8 +603,11 @@ def _closure(succ, states, slots, valid, n_valid, F, P, plan,
 def init_seg_carry(F: int, P: int, device=None):
     """Initial carry ``(states, slots, valid, n, status, fail)`` of the
     chunked segmented search: one empty config. The frontier lives on
-    ``device``; the scalars are host ints."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    ``device`` (``None`` means ``cuda``, as at every entry point); the
+    scalars are host ints."""
+    from ..utils import resolve_device
+
+    dev = resolve_device(device)
     states = torch.zeros(F, dtype=torch.int32, device=dev)
     slots = torch.full((F, P), IDLE, dtype=torch.int32, device=dev)
     valid = torch.zeros(F, dtype=torch.bool, device=dev)

@@ -40,6 +40,7 @@ import os as _os
 import numpy as np
 import torch
 
+from ..utils import resolve_device
 from .linear_torch import (INVALID, UNKNOWN, VALID, _lexsort, _word_keys,
                            as_tensor, engine_device, make_pack_plan, take)
 
@@ -264,10 +265,10 @@ def _plan_for(n_states: int, n_transitions: int, P: int):
 
 def init_carry(B: int, F: int, P: int, n_states: int, n_transitions: int,
                device=None):
-    """Initial carry on ``device`` (default cpu): one empty config per
-    batch, all slots IDLE."""
+    """Initial carry on ``device`` (``None`` means ``cuda``, as at every
+    entry point): one empty config per batch, all slots IDLE."""
     plan = _plan_for(n_states, n_transitions, P)
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     words = tuple(torch.full((B * F,), v, dtype=torch.int32, device=dev)
                   for v in _idle_words(plan))
     valid = (torch.arange(B * F, device=dev) % F) == 0

@@ -22,12 +22,17 @@ while the status is VALID):
 
 What bounds it on the card: neither bytes (the whole input is a few
 hundred KB, read once) nor arithmetic, but the serial chain segment x
-closure iteration x bitonic stage, each stage a block-wide barrier.
-The design keeps that chain short: one CTA per history holds the
-frontier, its candidates and the successor table in shared memory for
-the whole run (no device-memory round trip between segments), and
-each closure iteration sorts only ``next_pow2(n * (P + 1))`` keys — the
-frontier that is actually live — instead of the full buffer.
+closure iteration and the latency of each step. So one WARP owns one
+segment stream and the chain synchronises with shuffles and
+``__syncwarp`` only. A closure iteration does not sort its ``n (P + 1)``
+keys: each lane looks its candidates up in the sorted frontier (a binary
+search), and only the new ones — after a fixed point, expansions through
+newly invoked slots, a handful — are sorted in registers (at most 256,
+``R`` = 1, 2, 4 or 8 keys per lane) and merged into the frontier by
+rank; an iteration with more new candidates sorts the union in shared
+memory. The CTA's warps share one copy of the successor
+table; each warp keeps its frontier in shared memory and prefetches its
+segment rows into a double-buffered ring with ``cp.async``.
 
 Stream mode (the batch path, ``checker.batch`` engine ``stream``): a
 row with ``ok_proc == RESET`` flushes the current history's ``(status,
@@ -35,7 +40,7 @@ fail, n)`` into ``results[counter]``, advances the counter and re-seeds
 the frontier with the empty config; an INVALID or UNKNOWN history skips
 to the next RESET, so it never stops the histories after it. A batch is
 packed into G RESET-marked group streams, balanced by segment count,
-one CTA each (:func:`stream_dispatch`).
+one warp each, G = SMs x warp-streams per SM (:func:`stream_dispatch`).
 
 Host half (same key layout as the JAX package, so frontiers decode
 identically): :class:`SegKernelSpec`, :func:`spec_for`,
@@ -78,6 +83,8 @@ SENT_HI = 1 << 30
 SENT_LO = 0
 RESET = -2                # ok_proc marker: flush a history, start the next
 
+WARPS_PER_CTA = 8         # the kernel's MAX_WARPS: warp-streams per CTA
+
 #: kernel launches this process (the wrappers' counts; the plain
 #: version never touches them): single-history and stream mode
 LAUNCHES = 0
@@ -100,8 +107,8 @@ class SegKernelSpec(NamedTuple):
 
     @property
     def n_keys(self) -> int:
-        """Sort-buffer capacity: frontier plus P candidate blocks,
-        padded to a power of two."""
+        """Large-closure buffer capacity: frontier plus P candidate
+        blocks, padded to a power of two."""
         return _next_pow2(LANES * (self.P + 1))
 
 
@@ -236,12 +243,12 @@ def seg_search_reference(seg: torch.Tensor, off: int, stride: int,
     ``(status, fail, n)`` to ``results[counter]`` when the counter
     (``stat[3]``) is in ``[0, H)``, then restarts from the empty config.
 
-    ``work``, when given, accumulates what the function needs on these
-    inputs, whatever the algorithm: ``keys`` (the ``m = n * (P + 1)``
+    ``work``, when given, accumulates ``keys`` (the ``m = n * (P + 1)``
     keys of every closure iteration, summed) and ``compares`` (``m *
     floor(log2 m)`` comparisons to sort them plus ``m - 1`` to find the
-    duplicates) — the operation count of the kernel's roofline bound,
-    which the kernel's ``work`` counter reproduces."""
+    duplicates), which the kernel's ``work`` counter reproduces: a
+    parity check of the iterations run, not a bound (the closures need
+    fewer, see :func:`needed_compares`)."""
     dev = ws.device
     W, P = spec.n_words, spec.P
     K = (seg.shape[1] - 2) // 2
@@ -329,11 +336,30 @@ def seg_search_reference(seg: torch.Tensor, off: int, stride: int,
 
 # --- the CUDA kernel's wrapper ------------------------------------------------
 
+def needed_compares(ms, P: int) -> int:
+    """The comparisons a stream's closures need at the least, from the
+    key counts ``m = n * (P + 1)`` of its closure iterations in order
+    (those with ``m > 0``): the ``n`` frontier keys are sorted already,
+    so each of the ``n * P`` expansions needs one binary search into
+    them, ``ceil(log2(n + 1))`` comparisons; and the ``u`` keys by which
+    an iteration's ``n`` exceeds the previous one's (the new keys that
+    iteration added) need ``u * ceil(log2 u)`` to sort. The operation
+    count of the kernel's roofline bound, which its ``need`` counter
+    reproduces."""
+    total, prev = 0, None
+    for m in ms:
+        n = m // (P + 1)
+        u = n - prev if prev is not None and n > prev else 0
+        total += n * P * n.bit_length() + u * max(u - 1, 0).bit_length()
+        prev = n
+    return total
+
+
 def _check_inputs(seg, ws, stat, table, spec: SegKernelSpec,
-                  results=None, work=None) -> None:
+                  results=None, work=None, need=None) -> None:
     """Single-history shapes, or with a leading G axis on ``seg``,
-    ``ws`` and ``stat`` (stream mode: ``results`` int32[G, H, 3],
-    ``work`` int64[G] or None)."""
+    ``ws`` and ``stat``, one warp stream each (stream mode: ``results``
+    int32[G, H, 3]; ``work`` and ``need`` int64[G] or None)."""
     dev = ws.device
     lead = tuple(seg.shape[:-2])
     named = [("seg", seg), ("ws", ws), ("stat", stat), ("table", table)]
@@ -363,35 +389,56 @@ def _check_inputs(seg, ws, stat, table, spec: SegKernelSpec,
                                 or results.shape[2] != 3):
         raise ValueError(f"results shape {tuple(results.shape)} != "
                          f"{lead + ('H', 3)}")
-    if work is not None and (work.dtype != torch.int64
-                             or tuple(work.shape) != (lead or (1,))
-                             or work.device != dev):
-        raise ValueError("work must be int64 with one entry per CTA")
+    for name, t in (("work", work), ("need", need)):
+        if t is not None and (t.dtype != torch.int64
+                              or tuple(t.shape) != (lead or (1,))
+                              or t.device != dev):
+            raise ValueError(f"{name} must be int64 with one entry per "
+                             "stream")
+
+
+def launch_geometry(n_streams: int, sms: int):
+    """``(CTAs, warps per CTA)`` of a launch of ``n_streams`` warp
+    streams: a launch of up to one stream per SM runs one warp per CTA,
+    so its CTAs spread over the SMs; a larger one packs up to
+    ``WARPS_PER_CTA`` warps into each CTA, which share one copy of the
+    successor table."""
+    n_streams = max(n_streams, 1)
+    warps = min(WARPS_PER_CTA, max(-(-n_streams // max(sms, 1)), 1))
+    return -(-n_streams // warps), warps
 
 
 def _launch(seg, off: int, stride: int, ws, stat, table,
-            spec: SegKernelSpec, results=None, work=None):
-    """One kernel launch on the current stream, one CTA per leading
-    index of ``seg`` (or one CTA for a 2-D ``seg``); returns the output
+            spec: SegKernelSpec, results=None, work=None, need=None,
+            lib=None):
+    """One kernel launch on the current stream, one warp per leading
+    index of ``seg`` (or one warp for a 2-D ``seg``), CTAs and warps per
+    CTA from :func:`launch_geometry`; returns the output
     carry ``(ws_out, stat_out)`` without synchronising. ``results``
-    selects stream mode; ``work`` receives each CTA's count of needed
-    comparisons (see :func:`seg_search_reference`)."""
+    selects stream mode; ``work`` receives each stream's comparison
+    count as :func:`seg_search_reference` counts it, ``need`` the count
+    of :func:`needed_compares`. ``lib`` is the loaded library to launch
+    (default: the plain build, ``build.load()``)."""
     global LAUNCHES, STREAM_LAUNCHES
     from ..kernels import build
 
-    lib = build.load()
-    _check_inputs(seg, ws, stat, table, spec, results, work)
+    lib = build.load() if lib is None else lib
+    _check_inputs(seg, ws, stat, table, spec, results, work, need)
     ws_out = torch.empty_like(ws)
     stat_out = torch.empty_like(stat)
     lay = build.layout(spec)
     batch = seg.shape[0] if seg.dim() == 3 else 1
+    sms = torch.cuda.get_device_properties(ws.device).multi_processor_count
+    _, warps = launch_geometry(batch, sms)
     err = lib.seg_search_launch(
         seg.data_ptr(), seg.shape[-2], off, stride, ws.data_ptr(),
         stat.data_ptr(), table.data_ptr(), table.numel(),
-        ws_out.data_ptr(), stat_out.data_ptr(), batch, ctypes.byref(lay),
+        ws_out.data_ptr(), stat_out.data_ptr(), batch, warps,
+        ctypes.byref(lay),
         None if results is None else results.data_ptr(),
         0 if results is None else results.shape[1],
         None if work is None else work.data_ptr(),
+        None if need is None else need.data_ptr(),
         torch.cuda.current_stream(ws.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_search launch failed: CUDA error {err} "
@@ -588,35 +635,46 @@ def plan_groups(sizes, G: int):
 SM_COUNT = 132
 
 
-def default_groups(B: int, spec: SegKernelSpec, table_n: int,
-                   device) -> int:
-    """Group streams for a batch of ``B``: on the card, as many CTAs as
-    it holds at once (SMs x resident CTAs per SM for this layout), so
-    the whole batch runs in one wave; on CPU tensors ``SM_COUNT``."""
-    if device.type != "cuda":
-        return max(min(B, SM_COUNT), 1)
+def warp_streams_per_sm(spec: SegKernelSpec, table_n: int) -> int:
+    """Warp streams of this layout one SM holds at once (CTAs of
+    ``WARPS_PER_CTA`` warps per SM, from the occupancy API, times
+    ``WARPS_PER_CTA``); card only."""
     from ..kernels import build
 
     per_sm = build.load().seg_search_occupancy(
         ctypes.byref(build.layout(spec)), table_n)
     if per_sm < 1:
         raise RuntimeError("seg_search: no CTA of this layout fits an SM")
+    return per_sm
+
+
+def default_groups(B: int, spec: SegKernelSpec, table_n: int,
+                   device) -> int:
+    """Group streams for a batch of ``B``: on the card, as many warp
+    streams as it holds at once (SMs x warp streams per SM for this
+    layout), so the whole batch runs in one wave; on CPU tensors
+    ``SM_COUNT``."""
+    if device.type != "cuda":
+        return max(min(B, SM_COUNT), 1)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(min(B, sms * per_sm), 1)
+    return max(min(B, sms * warp_streams_per_sm(spec, table_n)), 1)
 
 
 def seg_search_stream(seg: torch.Tensor, stride: int, table: torch.Tensor,
                       spec: SegKernelSpec, n_hist: int,
-                      work: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      work: Optional[torch.Tensor] = None,
+                      need: Optional[torch.Tensor] = None,
+                      lib=None) -> torch.Tensor:
     """Run G RESET-marked group streams ``seg`` (int32[G, L, 2+2K]) from
     the initial carry. Returns ``results`` int32[G, n_hist, 3]: the
     ``(status, fail, n)`` of each group's histories in stream order
     (fail in stream coordinates).
 
     CPU tensors run :func:`seg_search_reference` group by group; CUDA
-    tensors launch the kernel once, one CTA per group, and a failed
-    build or launch raises. ``work`` (int64[G], CUDA only) receives each
-    CTA's count of needed comparisons (see :func:`seg_search_reference`)."""
+    tensors launch the kernel once, one warp per group, and a failed
+    build or launch raises. ``work`` and ``need`` (int64[G], CUDA only)
+    receive each group's comparison counts, and ``lib`` is the library
+    to launch (see :func:`_launch`)."""
     dev = seg.device
     G = seg.shape[0]
     ws0 = torch.from_numpy(initial_frontier(spec)).to(dev)
@@ -630,7 +688,7 @@ def seg_search_stream(seg: torch.Tensor, stride: int, table: torch.Tensor,
         return results
     _launch(seg, 0, stride, ws0.expand(G, *ws0.shape).contiguous(),
             stat0.expand(G, 4).contiguous(), table, spec, results=results,
-            work=work)
+            work=work, need=need, lib=lib)
     return results
 
 
@@ -657,7 +715,7 @@ def stream_dispatch(succ, segs_list, spec: SegKernelSpec, n_states: int,
                     info: Optional[dict] = None):
     """Check many independent histories in ONE launch: pack them into
     G RESET-marked group streams balanced by segment count (G from
-    :func:`default_groups` unless given), one CTA per group. Every
+    :func:`default_groups` unless given), one warp per group. Every
     history gets its own verdict; one history's INVALID or UNKNOWN never
     stops the others. Returns ``[(status, fail_seg_local, n), ...]`` in
     input order; ``info`` receives the launch geometry."""
@@ -674,6 +732,9 @@ def stream_dispatch(succ, segs_list, spec: SegKernelSpec, n_states: int,
     if info is not None:
         info.update(groups=len(plan), rows=seg.shape[1], histories=B,
                     max_per_group=n_hist)
+        if dev.type == "cuda":
+            info["streams_per_sm"] = warp_streams_per_sm(spec,
+                                                         table.numel())
     res = seg_search_stream(torch.from_numpy(seg).to(dev), n_transitions,
                             table, spec, n_hist).cpu().numpy()
     out: list = [None] * B

@@ -7,7 +7,9 @@ from ``torch.cuda.current_stream()``). The build happens at first use,
 into ``comdb2_tpu_torch/_build/``, keyed by a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one loads the
 library already built. :func:`build_all` starts one ``nvcc`` per source
-at once.
+at once. ``defines`` builds a variant with extra ``-D`` macros beside
+the plain one (``seg_search.cu``'s ``SEG_PROFILE`` phase counters, read
+by ``scripts/torch_seg_profile.py``).
 
 Nothing here runs at import: the CPU tests import every module, and
 the host they run on has no ``nvcc``.
@@ -35,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel)
 BUILD_LOG: Dict[str, str] = {}
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 
 
 class SegLayout(ctypes.Structure):
@@ -76,22 +78,26 @@ def _nvcc() -> str:
                        "host with the CUDA toolkit")
 
 
-def library_path(name: str = "seg_search") -> Path:
+def _flags(defines=()) -> list:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def library_path(name: str = "seg_search", defines=()) -> Path:
     """Where the library for the current source and flags lives."""
     h = hashlib.sha256(SOURCES[name].read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                       + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{h}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines=()):
     """Start ``nvcc`` for ``name`` unless its library is built; returns
     ``(out, tmp, process)`` or None."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(SOURCES[name])]
     return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
 
@@ -106,13 +112,13 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)
 
 
-def build(name: str = "seg_search") -> Path:
+def build(name: str = "seg_search", defines=()) -> Path:
     """Compile one library unless it is already built; returns its
     path. Raises on a failed compile, with the compiler's output."""
-    started = _start(name)
+    started = _start(name, defines)
     if started is not None:
         _finish(name, started)
-    return library_path(name)
+    return library_path(name, defines)
 
 
 def build_all() -> None:
@@ -124,17 +130,18 @@ def build_all() -> None:
             _finish(name, st)
 
 
-def load(name: str = "seg_search") -> ctypes.CDLL:
+def load(name: str = "seg_search", defines=()) -> ctypes.CDLL:
     """Build (at first use) and load one library, with every function's
     argument and result types declared."""
-    if name in _LIBS:
-        return _LIBS[name]
-    lib = ctypes.CDLL(str(build(name)))
+    key = (name, tuple(defines))
+    if key in _LIBS:
+        return _LIBS[key]
+    lib = ctypes.CDLL(str(build(name, defines)))
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "seg_search":
         lib.seg_search_launch.argtypes = [
-            p, i, i, i, p, p, p, i, p, p, i, ctypes.POINTER(SegLayout),
-            p, i, p, p]
+            p, i, i, i, p, p, p, i, p, p, i, i, ctypes.POINTER(SegLayout),
+            p, i, p, p, p]
         lib.seg_search_launch.restype = i
         lib.seg_search_occupancy.argtypes = [ctypes.POINTER(SegLayout), i]
         lib.seg_search_occupancy.restype = i
@@ -144,7 +151,7 @@ def load(name: str = "seg_search") -> ctypes.CDLL:
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [i]
     err_fn.restype = ctypes.c_char_p
-    _LIBS[name] = lib
+    _LIBS[key] = lib
     return lib
 
 

@@ -134,3 +134,15 @@ def pinned_wide_history(n_pinned: int = 18,
             h.append(O.invoke(p, "read", None))
             h.append(O.ok(p, "read", i % 4))
     return h
+
+
+def concurrent_writes(k: int) -> List[O.Op]:
+    """``k`` processes each write a distinct value (1..k) at once, then
+    all return: a linearizable history whose first segment's closure
+    grows by the i-subsets of the writes (each with every possible last
+    writer) at step i, each config reached along several paths — the
+    segment-search kernel's widest merges (k = 6, 7) and, at k = 8, more
+    new candidates than it merges in registers."""
+    h = ([O.invoke(p, "write", p + 1) for p in range(k)]
+         + [O.ok(p, "write", p + 1) for p in range(k)])
+    return [op.with_(index=i) for i, op in enumerate(h)]

@@ -280,9 +280,62 @@ def test_plan_groups_balances_by_segments():
     assert len(wide) == 8 and all(len(g) == 1 for g in wide)
 
 
+PADS = dict(s_pad=512, k_pad=16, n_states_pad=32, n_transitions_pad=32,
+            p_eff_pad=8)
+
+
+@pytest.fixture(scope="module")
+def jax_keys_padded(batches):
+    jb, _ = batches
+    return JB.check_batch(jb, F=512, engine="keys", **PADS)
+
+
+@pytest.mark.parametrize("engine", ["keys", "auto"])
+def test_pad_floors_change_no_verdict(batches, jax_keys, jax_keys_padded,
+                                      engine):
+    """The reference's shape floors, non-zero: the same verdicts as the
+    JAX package with the same floors (and as without them)."""
+    _, tb = batches
+    got = TB.check_batch(tb, F=512, engine=engine, device="cpu", **PADS)
+    for a, b, c in zip(got[:2], jax_keys_padded[:2], jax_keys[:2]):
+        assert a.tolist() == b.tolist() == c.tolist()
+    st = got[0].tolist()
+    for s, a, b in zip(st, got[2].tolist(), jax_keys_padded[2].tolist()):
+        # the stream kernel zeroes its count on INVALID (see the module
+        # note); the key engines keep the pre-death one
+        assert a == (0 if s == LT.INVALID and engine == "auto" else b)
+
+
+@pytest.mark.parametrize("n_pad,s_pad,k_pad", [(0, 0, 0), (1024, 256, 16),
+                                               (64, 4096, 2)])
+def test_pad_floors_shape_the_host_arrays_alike(n_pad, s_pad, k_pad):
+    hs = _histories()[:3]
+    jb = JB.pack_batch(hs, JM.cas_register(), n_pad=n_pad)
+    tb = TB.pack_batch(hs, TM.cas_register(), n_pad=n_pad)
+    for f in ("kind", "proc", "tr"):
+        a, b = getattr(jb, f), getattr(tb, f)
+        assert a.shape == b.shape and np.array_equal(a, b), f
+    sj = JB.segment_batch(jb, s_pad=s_pad, k_pad=k_pad)
+    st = TB.segment_batch(tb, s_pad=s_pad, k_pad=k_pad)
+    for f in ("inv_proc", "inv_tr", "ok_proc", "seg_index", "depth"):
+        a, b = getattr(sj, f), getattr(st, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
 def test_unported_routes_raise(batches):
     _, tb = batches
     for kw in (dict(engine="flat"), dict(engine="vmap"),
                dict(mesh=object())):
         with pytest.raises(EngineNotPorted):
             TB.check_batch(tb, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("fn", [TB.check_batch, TB.check_batch_async])
+def test_unknown_pad_keyword_raises(batches, fn):
+    """The reference's table and slot floors are the only extra keywords
+    the batch entry points take; a misspelt one raises."""
+    _, tb = batches
+    assert set(TB.REFERENCE_PADS) == {k for k in PADS if k not in
+                                      ("s_pad", "k_pad")}
+    with pytest.raises(TypeError, match="p_eff_padd"):
+        fn(tb, F=512, engine="keys", device="cpu", p_eff_padd=8)

@@ -23,7 +23,8 @@ from comdb2_tpu_torch.checker import seg_kernel as SK
 from comdb2_tpu_torch.models.memo import memo
 from comdb2_tpu_torch.models.model import cas_register
 from comdb2_tpu_torch.ops.packed import pack_history
-from comdb2_tpu_torch.ops.synth import mutate, register_history
+from comdb2_tpu_torch.ops.synth import (concurrent_writes, mutate,
+                                         register_history)
 from comdb2_tpu_torch.ops.synth_columnar import wide_register_batch_packed
 from comdb2_tpu_torch.utils import next_pow2
 
@@ -72,6 +73,70 @@ def test_kernel_matches_plain_version(cuda, case):
         assert got[2] == want[2]
         assert SK.decode_frontier(spec, got[3], p) == \
             SK.decode_frontier(spec, want[3], p)
+
+
+class _MRecorder(dict):
+    """A ``work`` dict that also keeps each closure iteration's m."""
+
+    def __init__(self):
+        super().__init__()
+        self.ms = []
+
+    def __setitem__(self, key, value):
+        if key == "keys":
+            self.ms.append(value - self.get("keys", 0))
+        super().__setitem__(key, value)
+
+
+@pytest.mark.parametrize("P", [6, 10])
+def test_kernel_large_closures_match_plain_version(cuda, P):
+    """A 10-process history with up to 5 calls in flight, its slots
+    padded to P (2-word keys at 6, 3-word at 10): closures of 512 keys,
+    and at P=10 of 1024."""
+    rng = random.Random(1010)
+    h = register_history(rng, n_procs=10, n_events=1500, values=5,
+                         p_info=0.0, max_pending=5)
+    packed = pack_history(h)
+    mm = memo(cas_register(), packed)
+    segs, p = LT.remap_slots(LT.make_segments(packed, k_pad=8))
+    spec = SK.spec_for(mm.n_states, mm.n_transitions, max(p, P), 8)
+    seg = torch.from_numpy(SK.pack_segments(segs, spec)).to(cuda)
+    ws = torch.from_numpy(SK.initial_frontier(spec)).to(cuda)
+    stat = torch.from_numpy(SK._init_stat()).to(cuda)
+    table = torch.from_numpy(SK.pack_table(mm.succ)).to(cuda)
+    got = SK.seg_search(seg, 0, mm.n_transitions, ws, stat, table, spec)
+    torch.cuda.synchronize()
+    rec = _MRecorder()
+    want = SK.seg_search_reference(seg, 0, mm.n_transitions, ws, stat,
+                                   table, spec, work=rec)
+    sizes = {1 << (m - 1).bit_length() for m in rec.ms}
+    assert 512 in sizes and (1024 in sizes) == (P == 10)
+    assert got[:3] == want[:3] and want[0] == SK.VALID
+    assert SK.decode_frontier(spec, got[3], spec.P) == \
+        SK.decode_frontier(spec, want[3], spec.P)
+
+
+@pytest.mark.parametrize("k,P", [(6, None), (7, None), (8, None), (8, 15)])
+def test_kernel_rare_paths_match_plain_version(cuda, k, P):
+    """``concurrent_writes(k)``: merges of 4 and 8 new keys per lane
+    (k = 6, 7) and the union path in the CTA's locked buffer (k = 8; at
+    P=15 with 3-word keys), up to the overflow, bit-equal frontier and
+    all (``tests/test_torch_seg_warp.py`` replays which path each takes)."""
+    packed = pack_history(concurrent_writes(k), completed=True)
+    mm = memo(cas_register(), packed)
+    segs, p = LT.remap_slots(LT.make_segments(packed, k_pad=8))
+    spec = SK.spec_for(mm.n_states, mm.n_transitions, max(p, P or 1), 8)
+    seg = torch.from_numpy(SK.pack_segments(segs, spec)).to(cuda)
+    ws = torch.from_numpy(SK.initial_frontier(spec)).to(cuda)
+    stat = torch.from_numpy(SK._init_stat()).to(cuda)
+    table = torch.from_numpy(SK.pack_table(mm.succ)).to(cuda)
+    got = SK.seg_search(seg, 0, mm.n_transitions, ws, stat, table, spec)
+    torch.cuda.synchronize()
+    want = SK.seg_search_reference(seg, 0, mm.n_transitions, ws, stat,
+                                   table, spec)
+    assert got[:3] == want[:3]
+    assert SK.decode_frontier(spec, got[3], spec.P) == \
+        SK.decode_frontier(spec, want[3], spec.P)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -159,6 +224,73 @@ def test_stream_kernel_matches_plain_version(cuda, groups):
         assert int(work[g]) == w.get("compares", 0)
     st = want[:, :, 0].flatten().tolist()
     assert LT.INVALID in st and LT.UNKNOWN in st
+
+
+def test_stream_kernel_in_full_ctas_matches_plain_version(cuda,
+                                                         monkeypatch):
+    """Ten group streams packed 8 warps to a CTA (one full CTA and one
+    of two warps), as a launch of more streams than SMs runs."""
+    tb = _mixed_batch()
+    streams, _ = TB._stream_segments(tb)
+    sizes = dict(n_states=tb.memo.n_states,
+                 n_transitions=tb.memo.n_transitions)
+    spec = TB._slice_spec(streams, sizes)
+    seg, plan, _ = SK.pack_groups(streams, spec, len(streams))
+    seg = torch.from_numpy(seg)
+    table = torch.from_numpy(SK.pack_table(tb.memo.succ))
+    monkeypatch.setattr(SK, "launch_geometry", lambda n, sms: (
+        -(-n // SK.WARPS_PER_CTA), SK.WARPS_PER_CTA))
+    got = SK.seg_search_stream(seg.to(cuda), sizes["n_transitions"],
+                               table.to(cuda), spec, 1)
+    torch.cuda.synchronize()
+    want = SK.seg_search_stream(seg, sizes["n_transitions"], table, spec, 1)
+    assert seg.shape[0] == 10
+    assert torch.equal(got.cpu(), want)
+
+
+def test_stream_kernel_locked_union_in_a_full_cta(cuda, monkeypatch):
+    """Eight group streams in one 8-warp CTA, each starting with two
+    ``concurrent_writes(8)`` histories (at P = 8 their third closure
+    iteration sorts 585 keys in the CTA's locked buffer, so all eight
+    warps compete for it at once) and ending with a (c)-family history:
+    results, work and need bit-equal to the plain version."""
+    rng = random.Random(1010)
+    cw = pack_history(concurrent_writes(8), completed=True)
+    hs = [cw] * 16 + [register_history(rng, n_procs=10, n_events=300,
+                                       values=5, p_info=0.0, max_pending=5)
+                      for _ in range(8)]
+    tb = TB.pack_batch(hs, cas_register())
+    streams, _ = TB._stream_segments(tb)
+    sizes = dict(n_states=tb.memo.n_states,
+                 n_transitions=tb.memo.n_transitions)
+    spec = TB._slice_spec(streams, sizes)
+    monkeypatch.setattr(SK, "plan_groups", lambda sizes_, G: [
+        [2 * g, 2 * g + 1, 16 + g] for g in range(G)])
+    seg, _, _ = SK.pack_groups(streams, spec, 8)
+    assert spec.P == 8
+    seg = torch.from_numpy(seg)
+    table = torch.from_numpy(SK.pack_table(tb.memo.succ))
+    monkeypatch.setattr(SK, "launch_geometry", lambda n, sms: (
+        -(-n // SK.WARPS_PER_CTA), SK.WARPS_PER_CTA))
+    work = torch.zeros(8, dtype=torch.int64, device=cuda)
+    need = torch.zeros_like(work)
+    got = SK.seg_search_stream(seg.to(cuda), sizes["n_transitions"],
+                               table.to(cuda), spec, 3, work=work,
+                               need=need)
+    torch.cuda.synchronize()
+    want = torch.zeros((8, 3, 3), dtype=torch.int32)
+    for g in range(8):
+        rec = _MRecorder()
+        SK.seg_search_reference(
+            seg[g], 0, sizes["n_transitions"],
+            torch.from_numpy(SK.initial_frontier(spec)),
+            torch.from_numpy(SK._init_stat()), table, spec, work=rec,
+            results=want[g])
+        assert 585 in rec.ms
+        assert int(work[g]) == rec["compares"]
+        assert int(need[g]) == SK.needed_compares(rec.ms, spec.P)
+    assert torch.equal(got.cpu(), want)
+    assert want[:, :2, 0].eq(LT.UNKNOWN).all()
 
 
 @pytest.mark.parametrize("B,N", [(64, 2048), (3, 8192), (2, 65536),

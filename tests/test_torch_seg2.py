@@ -23,6 +23,8 @@ from comdb2_tpu.ops import synth as JS
 from comdb2_tpu.ops.packed import pack_history as jax_pack
 
 from comdb2_tpu_torch.checker import linear_torch as LT
+from comdb2_tpu_torch.checker import mxu as TMX
+from comdb2_tpu_torch.utils import resolve_device
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -143,6 +145,24 @@ def test_expand_seg_carry_pads_like_the_jax_package():
     assert et[3:] == tuple(int(x) for x in ej[3:])
     with pytest.raises(ValueError):
         LT.expand_seg_carry(et, 16)
+
+
+@pytest.mark.parametrize("init", [
+    lambda: LT.init_seg_carry(16, 6)[0],
+    lambda: TMX.init_carry(1, 1024, 16, n_states=6, n_transitions=26)[1]],
+    ids=["linear_torch.init_seg_carry", "mxu.init_carry"])
+def test_carry_constructors_default_to_the_card(init):
+    """With no device, a carry goes where every entry point goes:
+    ``resolve_device()`` — the card, or on a host without one the same
+    error ``resolve_device()`` raises."""
+    try:
+        want = resolve_device()
+    except RuntimeError as e:
+        with pytest.raises(RuntimeError) as got:
+            init()
+        assert str(got.value) == str(e)
+        return
+    assert init().device.type == want.type
 
 
 @pytest.mark.parametrize("n_states,n_transitions,P", [
