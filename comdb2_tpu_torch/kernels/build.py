@@ -9,7 +9,8 @@ flags, so an edited source rebuilds and an unchanged one loads the
 library already built. :func:`build_all` starts one ``nvcc`` per source
 at once. ``defines`` builds a variant with extra ``-D`` macros beside
 the plain one (``seg_search.cu``'s ``SEG_PROFILE`` phase counters, read
-by ``scripts/torch_seg_profile.py``).
+by ``scripts/torch_seg_profile.py``; ``pair_sort.cu``'s ``PS_PROFILE``
+phase stamps, read by ``scripts/torch_pair_sort_profile.py``).
 
 Nothing here runs at import: the CPU tests import every module, and
 the host they run on has no ``nvcc``.
@@ -146,8 +147,19 @@ def load(name: str = "seg_search", defines=()) -> ctypes.CDLL:
         lib.seg_search_occupancy.argtypes = [ctypes.POINTER(SegLayout), i]
         lib.seg_search_occupancy.restype = i
     else:
-        lib.pair_sort_launch.argtypes = [p, p, i, i, i, p]
+        lib.pair_sort_launch.argtypes = [p, p, p, p, p, i, i, p]
         lib.pair_sort_launch.restype = i
+        lib.pair_sort_phase.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.pair_sort_phase.restype = i
+        for fn in ("pair_sort_tile", "pair_sort_smem_bytes"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = i
+        lib.pair_sort_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.pair_sort_attrs.restype = i
+        lib.pair_sort_scratch_words.argtypes = [i, i]
+        lib.pair_sort_scratch_words.restype = ctypes.c_longlong
+        lib.pair_sort_stamps.argtypes = [p]
+        lib.pair_sort_stamps.restype = i
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [i]
     err_fn.restype = ctypes.c_char_p

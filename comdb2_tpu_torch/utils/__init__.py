@@ -1,6 +1,6 @@
 """Shared utilities."""
 
-from .device import resolve_device
+from .device import queued_ms, resolve_device
 from .shapes import next_pow2
 
-__all__ = ["next_pow2", "resolve_device"]
+__all__ = ["next_pow2", "queued_ms", "resolve_device"]

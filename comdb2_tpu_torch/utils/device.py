@@ -19,3 +19,23 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU")
     return dev
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean card milliseconds per call of ``fn`` (which launches work on
+    the current stream): one warm-up call, then a sleep kernel (400k
+    cycles, about 0.2 ms, per call) that keeps the card busy while the
+    host queues ``reps`` calls behind it, so that the host's time per
+    call (Python, allocation, launch) does not show as card time; CUDA
+    events around the queued calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 400_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps

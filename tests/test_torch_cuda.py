@@ -293,15 +293,39 @@ def test_stream_kernel_locked_union_in_a_full_cta(cuda, monkeypatch):
     assert want[:, :2, 0].eq(LT.UNKNOWN).all()
 
 
-@pytest.mark.parametrize("B,N", [(64, 2048), (3, 8192), (2, 65536),
-                                 (4, 131072), (5, 2)])
-def test_pair_sort_kernel_matches_plain_version(cuda, B, N):
+def _sort_rows(B, N, rows="random"):
     g = torch.Generator().manual_seed(B * N)
     hi = torch.randint(-8, 8, (B, N), generator=g, dtype=torch.int32)
     lo = torch.randint(-2**31, 2**31 - 1, (B, N), generator=g,
                        dtype=torch.int32)
     hi[:, :N // 4] = 1 << 30                  # block sentinels
     lo[:, :N // 4] = 5
+    if rows == "equal":
+        hi.fill_(-3)
+        lo.fill_(-2**31)
+    elif rows == "reversed":
+        hi, lo = (t.flip(1).contiguous()
+                  for t in PSORT.pair_sort_reference(hi, lo))
+    elif rows == "corners":
+        w = torch.tensor([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 2,
+                          2**31 - 1], dtype=torch.int32)
+        hi = w[torch.randint(0, 7, (B, N), generator=g)]
+        lo = w[torch.randint(0, 7, (B, N), generator=g)]
+    return hi, lo
+
+
+T = PSORT.SMEM_N
+
+
+@pytest.mark.parametrize("B,N,rows", [
+    (64, 2048, "random"), (3, 8192, "random"), (2, 65536, "random"),
+    (4, 131072, "random"), (5, 2, "random"), (8, 131072, "random"),
+    (1, T, "random"), (1, 2 * T, "random"), (256, 4096, "random"),
+    (8, 131072, "equal"), (3, 2 * T, "equal"), (8, 131072, "reversed"),
+    (5, T, "reversed"), (7, 64, "corners"), (2, 4 * T, "corners"),
+    (3, 1, "random")])
+def test_pair_sort_kernel_matches_plain_version(cuda, B, N, rows):
+    hi, lo = _sort_rows(B, N, rows)
     before = PSORT.LAUNCHES
     got = PSORT.pair_sort(hi.to(cuda), lo.to(cuda))
     torch.cuda.synchronize()
@@ -309,6 +333,41 @@ def test_pair_sort_kernel_matches_plain_version(cuda, B, N):
     want = PSORT.pair_sort_reference(hi, lo)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_pair_sort_on_a_side_stream_and_unaligned_inputs(cuda):
+    hi, lo = _sort_rows(8, 131072)
+    want = PSORT.pair_sort_reference(hi, lo)
+    side = torch.cuda.Stream()
+    # rows one element into their storage: not 16-byte aligned
+    hi_u = torch.cat([hi.new_zeros(1), hi.reshape(-1)]).to(cuda)[1:]
+    lo_u = torch.cat([lo.new_zeros(1), lo.reshape(-1)]).to(cuda)[1:]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = PSORT.pair_sort(hi_u.view(8, 131072), lo_u.view(8, 131072))
+        again = PSORT.pair_sort(got[1][:2].contiguous(),
+                                got[0][:2].contiguous())
+    side.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    want2 = PSORT.pair_sort_reference(want[1][:2].contiguous(),
+                                      want[0][:2].contiguous())
+    assert torch.equal(again[0].cpu(), want2[0])
+    assert torch.equal(again[1].cpu(), want2[1])
+
+
+def test_pair_sort_library_shape_and_phases(cuda):
+    from comdb2_tpu_torch.kernels import build
+
+    lib = build.load("pair_sort")
+    assert lib.pair_sort_tile() == PSORT.SMEM_N
+    attrs = PSORT.kernel_attrs(lib)
+    for name in ("block", "merge"):
+        assert 0 < attrs[name]["registers"] <= 255
+        assert attrs[name]["local_bytes"] == 0        # no spills
+    hi, lo = _sort_rows(8, 131072)
+    ms = PSORT.phase_ms(hi.to(cuda), lo.to(cuda), reps=2)
+    assert len(ms) == 6 and all(m > 0 for m in ms)
 
 
 def test_check_batch_on_the_card_matches_cpu(cuda):
