@@ -7,8 +7,9 @@ Run from the root of a checkout on a host with one CUDA card:
 
 It builds every kernel from the sources in the checkout (one ``nvcc``
 per source, all at once), drives the port's main paths through their
-public entry points (``checker.analysis``, ``filetest`` and
-``checker.batch.check_batch``) at full size, holds every kernel against
+public entry points (``checker.analysis``, ``filetest``,
+``checker.batch.check_batch``, and the checker layer's ``txn.check_txn``,
+``checker.wl.check_wl_batch`` and ``IndependentChecker``) at full size, holds every kernel against
 its plain PyTorch version on the same card tensors, and times both. It
 imports nothing of JAX and nothing of the JAX package, and falls back
 to nothing: any failure exits non-zero before the result line.
@@ -52,6 +53,38 @@ Batch requests (``check_batch``), counted as a second path:
 Every request's verdict, op index, engine and frontier capacity must be
 the ones earlier runs of this script recorded (``RECORDED``).
 
+The checker layer, counted as a third path:
+
+- (t) the txn closure at the top of ``scripts/bench_txn.py``: a dense
+  dependency graph with its realtime plane at N = 4096 (the generator
+  copied here as ``make_graph``), valid and with one rw back edge that
+  closes a G2 cycle, realtime on and off, ``cyclic_layers_device``
+  bit-equal to the host SCC; then ``closure_diag_batch`` on 8 graphs at
+  N = 1024 in one call, each lane bit-equal to the host; card time,
+  TFLOP/s and bound of the squarings, beside as many bare
+  ``torch.matmul`` calls on (3, N, N) bf16;
+- (t2) ``check_txn`` on a ``list_append_history`` of 2400 txns (past
+  ``DEVICE_THRESHOLD``, so ``auto`` takes the card), alone and with a
+  G1c and a G2-item history appended on fresh processes and keys,
+  realtime on and off: verdict maps and decoded cycles equal to
+  ``backend="host"``'s, one closure call each;
+- (w) ``check_wl_batch`` on 512 lanes per family at the top rungs
+  (bank: 512 reads, 512 transfers, 8 accounts; sets: 8000 elements;
+  dirty: 8000 values, 512 reads of 16 nodes), valid and with its
+  violation twin (``total``, ``lost``, ``dirty``, planted in a copy of
+  the valid batch as the generators plant it): one device call per
+  batch, every lane agreeing with the host oracle
+  (``wl.batch.agrees_with_oracle``); each program's card time, lanes
+  per second and bound (bytes read once and written once);
+- (i) ``IndependentChecker(Linearizable())`` over 256 keys, each a
+  5-process register history of 2000 events, every 32nd mutated: one
+  ``seg_search[stream]`` launch, each key's verdict equal to its own
+  ``analysis`` on the card;
+- (e2) ``filetest --checker txn / bank / sets / dirty`` on every
+  fixture under ``tests/fixtures/txn`` and ``tests/fixtures/wl``, and
+  ``--checker wgl`` / ``--checker set`` on a register / set history:
+  exit codes 0 valid, 1 invalid.
+
 Then: (d') the seg2 engine on the card against the same engine on CPU
 tensors for history (d); kernel parity on the card for ``seg_search``
 (windows of (a)-(d); the 64-segment stretch of (c)'s head window whose
@@ -90,7 +123,8 @@ group count G and the most histories one stream runs.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists every kernel with its parity and times.
+the line before it lists every kernel with its parity and times, and
+its launches on each path (``launches_by_path``).
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 """
 
@@ -112,6 +146,11 @@ INT32_LANES_PER_SM = 64              # Hopper's INT32 units per SM
 G_HISTORIES, G_OPS = 4096, 2000      # (g), the batch north star
 MIN_STREAMS = 132                    # the H100's SM count
 DEEP = 64              # segments of (c)'s deepest stretch
+BF16_FLOPS = 989e12    # the H100's dense bf16 tensor-core peak (SXM)
+CLOSURE_N, CLOSURE_BATCH, CLOSURE_BATCH_N = 4096, 8, 1024   # (t)
+TXN_COUNT = 2400       # (t2): past check_txn's DEVICE_THRESHOLD
+WL_LANES = 512         # (w): the top WL_BATCH rung
+KEYS, KEY_EVENTS = 256, 2000                                 # (i)
 # what earlier runs of this script recorded on the card (PERF.md): per
 # request (valid, op_index, engine, frontier capacity), None where not
 # pinned; statuses per batch
@@ -532,6 +571,528 @@ def _lanes_vs_analysis(hs, st, fa):
                    if (s_, f_) != w]
 
 
+class _Failed(Exception):
+    """A check of the checker-layer path failed."""
+
+
+def _expect(ok: bool, msg: str) -> None:
+    if not ok:
+        raise _Failed(msg)
+
+
+def make_graph(rng: random.Random, n: int, dense: bool):
+    """(4, n, n) bool planes of a plausible dependency graph (the
+    generator of ``scripts/bench_txn.py``): a serial order with local
+    ww/wr/rw edges (acyclic, so the closure runs to full depth), plus
+    the dense realtime plane when asked (about n^2 / 2 edges)."""
+    import numpy as np
+
+    adj = np.zeros((4, n, n), dtype=bool)
+    for i in range(n):
+        for _ in range(2):
+            j = i + rng.randint(1, 6)
+            if j < n:
+                adj[rng.randrange(3), i, j] = True
+        if rng.random() < 0.1:
+            j = rng.randrange(n)
+            if j > i:
+                adj[2, i, j] = True
+    if dense:
+        ends = np.cumsum(rng.choices([1, 2], k=n))
+        starts = ends - rng.choices([1, 3, 8], k=n)
+        adj[3] = starts[None, :] > ends[:, None]
+        np.fill_diagonal(adj[3], False)
+    return adj
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _closure_requests(dev, rec):
+    """(t): the closure at the top of the bench, N = 4096, dense with
+    the realtime plane, valid and with one back edge closing a G2
+    cycle, realtime on and off, each bit-equal to the host SCC; then 8
+    graphs at N = 1024 in one batched call."""
+    import numpy as np
+    import torch
+
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+    from comdb2_tpu_torch.txn.scc import cyclic_layers_host
+
+    n = CLOSURE_N
+    t0 = time.perf_counter()
+    adj = make_graph(random.Random(4096), n, dense=True)
+    # an rw edge back to txn 0 from the last txn that txn 0 reaches
+    # through ww / wr / rw edges closes a cycle that needs the rw plane
+    # (G2-item), with the realtime plane and without it
+    reach = np.zeros(n, bool)
+    reach[0] = True
+    frontier = reach.copy()
+    deps = adj[0] | adj[1] | adj[2]
+    while frontier.any():
+        frontier = deps[frontier].any(0) & ~reach
+        reach |= frontier
+    cyc = adj.copy()
+    cyc[2, int(np.flatnonzero(reach)[-1]), 0] = True
+    t_gen = time.perf_counter() - t0
+    runs = []
+    for label, a in (("valid", adj), ("back edge", cyc)):
+        for realtime in (True, False):
+            t0 = time.perf_counter()
+            host = cyclic_layers_host(a, realtime=realtime)
+            t_host = time.perf_counter() - t0
+            d0 = TCL.DISPATCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = TCL.cyclic_layers_device(a, realtime=realtime, device=dev)
+            wall = time.perf_counter() - t0
+            same = bool(np.array_equal(got, host))
+            runs.append({"graph": label, "realtime": realtime,
+                         "equal": same, "calls": TCL.DISPATCHES - d0,
+                         "cyclic_per_layer": host.sum(1).tolist(),
+                         "wall_s": wall, "host_s": t_host})
+            print(f"  t {label}, realtime {realtime}: closure_diag "
+                  f"{'bit-equal' if same else 'DIFFERENT'} to the host SCC, "
+                  f"cyclic per layer {host.sum(1).tolist()}; wall "
+                  f"{wall * 1e3:.1f} ms (pack, upload, squarings, readback), "
+                  f"host SCC {t_host:.2f} s")
+            _expect(same and TCL.DISPATCHES - d0 == 1,
+                    f"(t) closure_diag differs from the host SCC or took "
+                    f"{TCL.DISPATCHES - d0} calls: {runs[-1]}")
+    _expect(not runs[0]["cyclic_per_layer"][2]
+            and runs[2]["cyclic_per_layer"][2] > 0
+            and runs[3]["cyclic_per_layer"][2] > 0,
+            f"(t) the back edge did not close a G2 cycle: {runs}")
+    # card time of the device program alone (planes already uploaded)
+    planes = torch.from_numpy(TCL._pack(adj)).to(dev)
+    sq = TCL.squarings(n)
+    ms = _time_cuda(lambda: TCL._diag_kernel(planes, n), 5)
+    gb = (torch.rand(3, n, n, device=dev) < 0.5).to(torch.bfloat16)
+    lib_ms = _time_cuda(lambda: [torch.matmul(gb, gb) for _ in range(sq)],
+                        5)
+    flops = 3 * 2 * n ** 3 * sq
+    bound, by = _bound_flops(_nbytes([planes]) + 3 * n, flops)
+    kernels = _count_kernels(lambda: TCL._diag_kernel(planes, n))
+    print(f"  t closure N={n}: {sq} squarings of (3, {n}, {n}) bf16, "
+          f"{ms:.3f} ms on the card (CUDA events, warm, mean of 5), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; {sq} bare torch.matmul "
+          f"{lib_ms:.3f} ms; bound {bound:.4f} ms ({by}, {BF16_FLOPS:.3g} "
+          f"FLOP/s bf16); {kernels} CUDA kernels per call")
+    # the batched entry: 8 graphs at N = 1024, one call
+    nb = CLOSURE_BATCH_N
+    rng = random.Random(1024)
+    adjs = np.stack([make_graph(rng, nb, dense=True)
+                     for _ in range(CLOSURE_BATCH)])
+    for b in range(1, CLOSURE_BATCH, 2):
+        adjs[b, 2, nb - 1 - b, b] = True       # a back edge in every odd lane
+    d0 = TCL.DISPATCHES
+    t0 = time.perf_counter()
+    got_b = TCL.closure_diag_batch(adjs, device=dev)
+    wall_b = time.perf_counter() - t0
+    calls_b = TCL.DISPATCHES - d0
+    host_b = [cyclic_layers_host(adjs[b], realtime=True)
+              for b in range(CLOSURE_BATCH)]
+    same_b = [bool(np.array_equal(got_b[b], host_b[b]))
+              for b in range(CLOSURE_BATCH)]
+    planes_b = torch.from_numpy(TCL._pack(adjs)).to(dev)
+    sq_b = TCL.squarings(nb)
+    ms_b = _time_cuda(lambda: TCL._diag_kernel(planes_b, nb), 5)
+    gbb = (torch.rand(CLOSURE_BATCH, 3, nb, nb, device=dev)
+           < 0.5).to(torch.bfloat16)
+    lib_b = _time_cuda(lambda: [torch.matmul(gbb, gbb)
+                                for _ in range(sq_b)], 5)
+    flops_b = CLOSURE_BATCH * 3 * 2 * nb ** 3 * sq_b
+    bound_b, by_b = _bound_flops(_nbytes([planes_b])
+                                 + CLOSURE_BATCH * 3 * nb, flops_b)
+    print(f"  t batch {CLOSURE_BATCH} x N={nb}: {calls_b} call, lanes "
+          f"{'bit-equal' if all(same_b) else same_b} to the host SCC, "
+          f"cyclic lanes {[int(h.any()) for h in host_b]}; {ms_b:.3f} ms "
+          f"on the card, {flops_b / ms_b / 1e9:.1f} TFLOP/s; bare "
+          f"torch.matmul {lib_b:.3f} ms; bound {bound_b:.4f} ms ({by_b}); "
+          f"wall {wall_b * 1e3:.1f} ms")
+    _expect(all(same_b) and calls_b == 1,
+            f"(t) closure_diag_batch: lanes {same_b}, {calls_b} calls")
+    _expect([bool(h.any()) for h in host_b]
+            == [bool(b % 2) for b in range(CLOSURE_BATCH)],
+            "(t) the batch's back edges did not close cycles")
+    rec["t"] = {"generate_s": t_gen, "runs": runs, "N": n, "squarings": sq,
+                "program": {
+                    "name": "closure_diag", "ms": ms, "library_ms": lib_ms,
+                    "bound_ms": bound, "bound_by": by, "flops": flops,
+                    "tflop_s": flops / ms / 1e9, "cuda_kernels": kernels,
+                    "calls_per_request": 1},
+                "batch": {
+                    "name": "closure_diag_batch", "B": CLOSURE_BATCH,
+                    "N": nb, "ms": ms_b, "library_ms": lib_b,
+                    "bound_ms": bound_b, "bound_by": by_b, "flops": flops_b,
+                    "tflop_s": flops_b / ms_b / 1e9, "wall_s": wall_b,
+                    "calls_per_request": calls_b, "equal": same_b}}
+
+
+def _bound_flops(nbytes: float, flops: float):
+    """(bound_ms, bound_by) at the HBM rate and the bf16 peak."""
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = flops / BF16_FLOPS * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def _count_kernels(fn):
+    """CUDA kernels one call of ``fn`` launches, by ``torch.profiler``
+    (None when the profiler sees no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+    except Exception as e:               # measurement only, never a gate
+        print(f"  (torch.profiler: {type(e).__name__}: {e})")
+        return None
+    return n or None
+
+
+def _fresh(history, offset):
+    """A txn history on processes and keys ``offset`` apart."""
+    return [op.with_(process=op.process + offset,
+                     value=tuple((f, k + offset, v) for f, k, v in op.value))
+            for op in history]
+
+
+def _check_txn_requests(dev, rec):
+    """(t2): ``check_txn`` end to end on a list-append run of 2400 txns
+    (``auto`` takes the card), alone and with a G1c and a G2-item
+    history appended on fresh processes and keys; verdict maps and
+    decoded cycles equal to the host backend's, realtime on and off."""
+    import torch
+
+    from comdb2_tpu_torch.ops.synth import (list_append_history,
+                                             txn_anomaly_history)
+    from comdb2_tpu_torch.txn import check_txn
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+
+    t0 = time.perf_counter()
+    base = list_append_history(random.Random(2048), n_procs=16,
+                               n_txns=TXN_COUNT, n_keys=64, max_micro=4)
+    t_gen = time.perf_counter() - t0
+    out = []
+    for label, extra in (("valid", None), ("+g1c", "g1c"),
+                         ("+g2-item", "g2-item")):
+        h = base if extra is None else \
+            base + _fresh(txn_anomaly_history(extra), 10_000)
+        for realtime in (False, True):
+            d0 = TCL.DISPATCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = check_txn(h, realtime=realtime, device=dev)
+            wall = time.perf_counter() - t0
+            calls = TCL.DISPATCHES - d0
+            t0 = time.perf_counter()
+            want = check_txn(h, backend="host", realtime=realtime)
+            t_host = time.perf_counter() - t0
+            cex = got["counterexample"]
+            row = {"history": label, "realtime": realtime,
+                   "txns": got["txn-count"], "edges": got["edge-count"],
+                   "valid": got["valid?"],
+                   "class": cex and cex["class"],
+                   "cycle": cex and [s["txn"] for s in cex["cycle"]],
+                   "equal": got == want, "calls": calls, "wall_s": wall,
+                   "host_s": t_host}
+            out.append(row)
+            print(f"  t2 {label}, realtime {realtime}: {row['txns']} txns, "
+                  f"{row['edges']} edges, valid={got['valid?']!r} "
+                  f"class={row['class']} cycle={row['cycle']}; "
+                  f"{'equal to' if row['equal'] else 'DIFFERENT from'} "
+                  f"backend=host; wall {wall:.3f} s ({calls} closure call), "
+                  f"host {t_host:.3f} s")
+            _expect(row["equal"] and calls == 1,
+                    f"(t2) check_txn on the card differs from the host or "
+                    f"did not take the card: {row}")
+            want_class = {None: None, "g1c": "G1c",
+                          "g2-item": "G2-item"}[extra]
+            _expect(row["class"] == want_class
+                    and got["valid?"] is (extra is None),
+                    f"(t2) {label}: verdict {got['valid?']!r}, class "
+                    f"{row['class']} (want {want_class})")
+    rec["t2"] = {"generate_s": t_gen, "runs": out}
+
+
+def _plant(family, histories):
+    """The violation twin of a valid ``wl.synth`` batch, planted in a
+    copy of each lane's last read, as the generators plant it: bank
+    ``total`` (+1 on the first balance, so the total breaks), sets
+    ``lost`` (an acked element dropped from the final read), dirty
+    ``dirty`` (a failed write's value on the last node)."""
+    out = []
+    for h in histories:
+        h = list(h)
+        ri = max(i for i, op in enumerate(h)
+                 if op.type == "ok" and op.f == "read")
+        row = list(h[ri].value)
+        if family == "bank":
+            row[0] += 1
+            h[ri - 1] = h[ri - 1].with_(value=tuple(row))
+        elif family == "sets":
+            acked = next(op.value for op in h
+                         if op.type == "ok" and op.f == "add")
+            row.remove(acked)
+        else:
+            row[-1] = next(op.value for op in h
+                           if op.type == "fail" and op.f == "write")
+        h[ri] = h[ri].with_(value=tuple(row))
+        out.append(h)
+    return out
+
+
+def _wl_requests(dev, rec):
+    """(w): the three families at the top rungs, 512 lanes each, valid
+    and with their violation twins; every lane against the host oracle,
+    one device call per batch; the device program timed alone."""
+    import torch
+
+    from comdb2_tpu_torch import convert
+    from comdb2_tpu_torch.checker import wl as W
+    from comdb2_tpu_torch.checker.wl import batch as WB
+
+    specs = {
+        "bank": (lambda: W.bank_batch(1, WL_LANES, n_accounts=8,
+                                       n_transfers=512, n_reads=512),
+                 "total"),
+        "sets": (lambda: (W.sets_batch(2, WL_LANES, n_adds=8000), None),
+                 "lost"),
+        "dirty": (lambda: (W.dirty_batch(3, WL_LANES, n_writes=8000,
+                                         n_reads=512, n_nodes=16), None),
+                  "dirty"),
+    }
+    rec["w"] = {}
+    for fam, (gen, twin) in specs.items():
+        r = rec["w"][fam] = {}
+        t0 = time.perf_counter()
+        valid_hs, model = gen()
+        t_gen = time.perf_counter() - t0
+        for viol in (None, twin):
+            t0 = time.perf_counter()
+            hs = valid_hs if viol is None else _plant(fam, valid_hs)
+            t_gen += time.perf_counter() - t0
+            d0 = WB.DISPATCHES
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = W.check_wl_batch(hs, fam, model, device=dev)
+            wall = time.perf_counter() - t0
+            calls = WB.DISPATCHES - d0
+            t0 = time.perf_counter()
+            host = WB._host_fallback(hs, fam, model)
+            t_host = time.perf_counter() - t0
+            agree = [WB.agrees_with_oracle(fam, d, o, h)
+                     for d, o, h in zip(got, host, hs)]
+            n_valid = sum(1 for d in got if d["valid?"] is True)
+            key = viol or "valid"
+            r[key] = {"lanes": len(hs), "calls": calls, "wall_s": wall,
+                      "generate_s": t_gen, "host_s": t_host,
+                      "valid_lanes": n_valid, "agree": all(agree),
+                      "lanes_per_s": len(hs) / wall}
+            print(f"  w {fam} {key}: {len(hs)} lanes, {calls} call, "
+                  f"{n_valid} valid; every lane "
+                  f"{'agrees' if all(agree) else 'does NOT agree'} with the "
+                  f"host oracle; wall {wall:.2f} s "
+                  f"({len(hs) / wall:.0f} lanes/s end to end), host oracle "
+                  f"{t_host:.2f} s, generation {t_gen:.1f} s")
+            _expect(all(agree) and calls == 1,
+                    f"(w) {fam} {key}: lanes "
+                    f"{[i for i, a in enumerate(agree) if not a][:8]} "
+                    f"disagree with the host oracle, {calls} calls")
+            _expect(n_valid == (len(hs) if viol is None else 0),
+                    f"(w) {fam} {key}: {n_valid} valid lanes")
+            if viol is None:
+                dims = W.wl_dims(hs, fam, model)
+                if fam == "bank":
+                    cols = W.encode_bank(hs, model, **dims)
+                    prog = lambda *a: W.wl_bank_check(  # noqa: E731
+                        *a, n_reads=dims["r_pad"],
+                        n_accounts=dims["a_pad"], n_snaps=dims["t_pad"])
+                elif fam == "sets":
+                    cols = W.encode_sets(hs, **dims)
+                    prog = lambda *a: W.wl_sets_check(  # noqa: E731
+                        *a, n_elems=dims["e_pad"])
+                else:
+                    cols = W.encode_dirty(hs, **dims)
+                    prog = lambda *a: W.wl_dirty_check(  # noqa: E731
+                        *a, n_reads=dims["r_pad"], n_nodes=dims["n_pad"],
+                        n_values=dims["v_pad"])
+                planes = convert.wl_columns(cols, dev)
+                outs = prog(*planes)
+                ms = _time_cuda(lambda: prog(*planes), 5)
+                nbytes = _nbytes(planes) + _nbytes(outs)
+                bound = nbytes / HBM_BYTES_PER_S * 1e3
+                kernels = _count_kernels(lambda: prog(*planes))
+                r["program"] = {"name": f"wl_{fam}_check", "dims": dims,
+                                "ms": ms, "bound_ms": bound,
+                                "bound_by": "bytes", "bytes": nbytes,
+                                "lanes_per_s": len(hs) / (ms / 1e3),
+                                "cuda_kernels": kernels,
+                                "calls_per_request": 1}
+                print(f"  w {fam} program wl_{fam}_check at {dims}: "
+                      f"{ms:.3f} ms on the card (CUDA events, warm, mean of "
+                      f"5), {len(hs) / (ms / 1e3):.0f} lanes/s; bound "
+                      f"{bound:.4f} ms (bytes: {nbytes} read once and "
+                      f"written once); {kernels} CUDA kernels per call")
+
+
+def _independent_request(dev, rec):
+    """(i): ``IndependentChecker(Linearizable())`` over 256 keys, each a
+    5-process register history of 2000 events, every 32nd mutated: one
+    ``check_batch`` launch of the stream kernel, each key's verdict equal
+    to its own ``analysis`` on the card."""
+    import torch
+
+    from comdb2_tpu_torch.checker import analysis
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.checker.checkers import Linearizable
+    from comdb2_tpu_torch.checker.independent import IndependentChecker
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops import op as O
+    from comdb2_tpu_torch.ops.kv import tuple_
+    from comdb2_tpu_torch.ops.synth import mutate, register_history
+
+    t0 = time.perf_counter()
+    per = []
+    for k in range(KEYS):
+        rng = random.Random(30_000 + k)
+        h = register_history(rng, n_procs=5, n_events=KEY_EVENTS,
+                             values=5, p_info=0.0)
+        if k % 32 == 7:
+            h = mutate(rng, h, values=5)
+        per.append([O.Op(op.process + 5 * k, op.type, op.f, op.value)
+                    for op in h])
+    # round-robin over the keys; key k's subhistory is per[k]
+    keyed = [op.with_(value=tuple_(k, op.value))
+             for i in range(max(map(len, per)))
+             for k, h in enumerate(per) if i < len(h) for op in (h[i],)]
+    t_gen = time.perf_counter() - t0
+    s0 = SK.STREAM_LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = IndependentChecker(Linearizable(device=dev)).check(
+        {}, cas_register(), keyed)
+    wall = time.perf_counter() - t0
+    stream = SK.STREAM_LAUNCHES - s0
+    l0 = SK.LAUNCHES
+    mismatched = []
+    for k in range(KEYS):
+        a = analysis(cas_register(), per[k], device=dev)
+        res = r["results"][k]
+        if (res["valid?"], res.get("op-index")) != \
+                (a.valid, a.to_map().get("op-index")):
+            mismatched.append(k)
+    batch_keys = sum(1 for v in r["results"].values()
+                     if v.get("backend") == "device-batch")
+    rec["i"] = {"keys": KEYS, "events_per_key": KEY_EVENTS,
+                "generate_s": t_gen, "wall_s": wall, "stream_launches": stream,
+                "comparison_launches": SK.LAUNCHES - l0,
+                "valid": r["valid?"], "failures": r["failures"],
+                "device_batch_keys": batch_keys, "mismatched": mismatched}
+    print(f"  i: {KEYS} keys x {KEY_EVENTS} events, valid={r['valid?']!r}, "
+          f"failures {r['failures']}; {batch_keys} keys VALID from the "
+          f"batch launch, the rest re-checked alone; {stream} "
+          f"seg_search[stream] launch; wall {wall:.2f} s; "
+          f"{'every key equals' if not mismatched else 'keys ' + str(mismatched) + ' differ from'} "
+          f"its own analysis")
+    _expect(stream == 1 and not mismatched and r["failures"]
+            and KEYS // 2 < batch_keys <= KEYS - len(r["failures"]),
+            f"(i) IndependentChecker: {rec['i']}")
+
+
+def _filetest_requests(rec, extra_args=()):
+    """(e2): ``filetest --checker ...`` on the txn and wl fixtures, and
+    ``--checker wgl`` / ``--checker set`` on a register / set history
+    (a set checker needs adds and a final read); exit codes 0 valid, 1
+    invalid, as the verify skill records. The device is filetest's
+    default (``extra_args`` adds to every command line)."""
+    import contextlib
+    import io
+
+    from comdb2_tpu_torch import filetest
+    from comdb2_tpu_torch.checker import linear_host
+    from comdb2_tpu_torch.checker.checkers import set_checker
+    from comdb2_tpu_torch.checker.wl import sets_batch
+    from comdb2_tpu_torch.models.memo import memo
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.history import history_to_edn
+    from comdb2_tpu_torch.ops.packed import pack_history
+    from comdb2_tpu_torch.ops.synth import mutate, register_history
+
+    fix = os.path.join(HERE, "tests", "fixtures")
+    bank = ["--wl-n", "8", "--wl-total", "160"]
+    cases = [([f"{fix}/txn/clean.edn", "--txn"], 0),
+             ([f"{fix}/txn/g1c.edn", "--txn"], 1),
+             ([f"{fix}/txn/g2_item.edn", "--txn"], 1),
+             ([f"{fix}/txn/g2_item.edn", "--txn", "--backend", "device",
+               "--realtime"], 1),
+             ([f"{fix}/wl/bank_valid.edn", "--checker", "bank"] + bank, 0),
+             ([f"{fix}/wl/bank_wrong_total.edn", "--checker", "bank"] + bank,
+              1),
+             ([f"{fix}/wl/sets_valid.edn", "--checker", "sets"], 0),
+             ([f"{fix}/wl/sets_lost.edn", "--checker", "sets"], 1),
+             ([f"{fix}/wl/dirty_valid.edn", "--checker", "dirty"], 0),
+             ([f"{fix}/wl/dirty_dirty.edn", "--checker", "dirty"], 1)]
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_e2_")
+
+    def host_valid(h):
+        packed = pack_history(h)
+        return linear_host.check(memo(cas_register(), packed), packed).valid
+
+    # a register history and the first mutation of it that is INVALID
+    h = register_history(random.Random(12), n_procs=5, n_events=300,
+                         values=5, p_info=0.0)
+    bad = next(m for m in (mutate(random.Random(s), h, values=5)
+                           for s in range(64)) if host_valid(m) is False)
+    for name, hh in (("register", h), ("register_mutated", bad)):
+        p = os.path.join(tmp.name, f"{name}.edn")
+        with open(p, "w") as fh:
+            fh.write(history_to_edn(hh))
+        cases.append(([p, "--checker", "wgl"], 0 if host_valid(hh) else 1))
+    for viol in (None, "lost"):
+        h = sets_batch(5, 1, n_adds=200, violation=viol)[0]
+        want = set_checker.check({}, None, h)["valid?"]
+        p = os.path.join(tmp.name, f"set_{viol}.edn")
+        with open(p, "w") as fh:
+            fh.write(history_to_edn(h))
+        cases.append(([p, "--checker", "set"], 0 if want else 1))
+    out = []
+    for argv, want in cases:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = filetest.main(argv + list(extra_args))
+        name = " ".join(os.path.basename(a) if a.endswith(".edn") else a
+                        for a in argv)
+        out.append({"argv": name, "exit": rc, "want": want})
+    tmp.cleanup()
+    rec["e2"] = out
+    print("  e2 filetest: " + "; ".join(f"{c['argv']} -> {c['exit']}"
+                                        for c in out))
+    bad = [c for c in out if c["exit"] != c["want"]]
+    _expect(not bad, f"(e2) filetest exit codes differ: {bad}")
+
+
+def _checker_layer(dev, filetest_args=()):
+    """Path 3, the checker layer, requests (t), (t2), (w), (i), (e2).
+    Returns its record; raises ``_Failed``."""
+    rec = {}
+    for step in (_closure_requests, _check_txn_requests, _wl_requests,
+                 _independent_request):
+        t0 = time.perf_counter()
+        step(dev, rec)
+        print(f"  ({step.__name__[1:]} took {time.perf_counter() - t0:.1f} s)")
+    _filetest_requests(rec, filetest_args)
+    return rec
+
+
 def main() -> int:
     try:
         import torch
@@ -553,6 +1114,7 @@ def main() -> int:
     from comdb2_tpu_torch.checker import linear_torch as LT
     from comdb2_tpu_torch.checker import pair_sort as PSORT
     from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.checker.wl import batch as WB
     from comdb2_tpu_torch.kernels import build
     from comdb2_tpu_torch.models.memo import memo
     from comdb2_tpu_torch.models.model import cas_register
@@ -560,6 +1122,7 @@ def main() -> int:
     from comdb2_tpu_torch.ops.history import history_to_edn
     from comdb2_tpu_torch.ops.packed import pack_history
     from comdb2_tpu_torch.ops.synth import mutate, register_history
+    from comdb2_tpu_torch.txn import closure_torch as TCL
     from comdb2_tpu_torch.utils import next_pow2, queued_ms
 
     t_start = time.perf_counter()
@@ -608,6 +1171,13 @@ def main() -> int:
 
     def zero_counts():
         SK.LAUNCHES = SK.STREAM_LAUNCHES = PSORT.LAUNCHES = 0
+        TCL.DISPATCHES = WB.DISPATCHES = 0
+
+    def counts():
+        return {"seg_search": SK.LAUNCHES,
+                "seg_search[stream]": SK.STREAM_LAUNCHES,
+                "pair_sort": PSORT.LAUNCHES,
+                "closure_diag": TCL.DISPATCHES, "wl_check": WB.DISPATCHES}
 
     # --- path 1: single-history analysis, counted ---------------------------
     results = {}
@@ -654,6 +1224,7 @@ def main() -> int:
     print(f"request e: filetest exit {rc_e} (want {want_rc})")
     f = run("f", h_f, backend="device")
     launches = SK.LAUNCHES
+    path_counts = {"single-history": counts()}
 
     checks = [
         (a.valid is True and a.info.get("engine") == "cuda-seg",
@@ -784,6 +1355,7 @@ def main() -> int:
     st_h10, fa_h10, _, info_h10 = run_batch("h10", batch_h10, 8192)
     stream_launches = SK.STREAM_LAUNCHES
     sort_launches = PSORT.LAUNCHES
+    path_counts["batch"] = counts()
     PSORT.pair_sort = sort_fn
     batch_res["g"]["host_s"] = {"generate": t_gen, "pack": t_pack,
                                 "segments": t_seg, "remap": t_remap}
@@ -837,6 +1409,26 @@ def main() -> int:
     for ok, msg in checks:
         if not ok:
             return _fail(msg)
+
+    # --- path 3: the checker layer, counted -------------------------------
+    print("checker layer: closure (t), check_txn (t2), workload families "
+          "(w), IndependentChecker (i), filetest --checker (e2)")
+    zero_counts()
+    try:
+        checker_rec = _checker_layer(dev)
+    except _Failed as e:
+        return _fail(str(e))
+    path_counts["checker layer"] = counts()
+    # the single-history launches that held (i)'s keys against their own
+    # analysis are a comparison, not the path's
+    path_counts["checker layer"]["seg_search"] -= \
+        checker_rec["i"]["comparison_launches"]
+    print(f"LAUNCHES (checker-layer path): {path_counts['checker layer']}")
+    if not (path_counts["checker layer"]["seg_search[stream]"] > 0
+            and path_counts["checker layer"]["closure_diag"] > 0
+            and path_counts["checker layer"]["wl_check"] > 0):
+        return _fail(f"the checker-layer path launched no stream kernel, "
+                     f"closure or wl program: {path_counts}")
 
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
@@ -1152,10 +1744,15 @@ def main() -> int:
     print(f"  request (h) wall {batch_res['h']['wall_s']:.4f} s, "
           f"{sort_launches} pair_sort calls in the batch path")
 
+    for e in entries:
+        e["launches_by_path"] = {path: c[e["name"]]
+                                 for path, c in path_counts.items()}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as fh:
         json.dump({"gpu": gpu, "requests": results, "batches": batch_res,
+                   "checker_layer": checker_rec,
+                   "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,
                   default=str)

@@ -13,8 +13,24 @@
   ladder (``linear.clj:299``).
 - :mod:`.batch` — :func:`~.batch.check_batch`, many histories per
   launch.
+- :mod:`.checkers` — the Jepsen checker objects (``compose``,
+  ``Linearizable``, ``Serializable``, set / queue / counter checkers);
+  :mod:`.independent` lifts one over keyed histories through
+  ``check_batch``; :mod:`.workloads` holds the bank / dirty-reads / G2
+  checkers, the host oracles of :mod:`.wl`, the device workload
+  families.
+- :mod:`.wgl` — the host world search (``knossos/core.clj``).
 """
 
 from .linear import Analysis, EngineNotPorted, analysis
+from .checkers import (Checker, check_safe, compose, merge_valid,
+                       linearizable, Linearizable, serializable,
+                       Serializable, unbridled_optimism,
+                       queue, set_checker, total_queue, counter)
+from . import independent, workloads, wgl
 
-__all__ = ["Analysis", "EngineNotPorted", "analysis"]
+__all__ = ["Analysis", "EngineNotPorted", "analysis", "Checker",
+           "check_safe", "compose", "merge_valid", "linearizable",
+           "Linearizable", "serializable", "Serializable",
+           "unbridled_optimism", "queue", "set_checker", "total_queue",
+           "counter", "independent", "workloads", "wgl"]

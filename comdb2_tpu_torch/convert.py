@@ -1,10 +1,11 @@
 """Carry the JAX package's host arrays into the port's tensors.
 
 The counterpart of carrying weights across: a memoized successor
-table, a segment stream and a kernel frontier made by the JAX package
-(or anything shaped like them — duck typing, no import of that
-package) become the port's objects on a given device, so one set of
-numpy inputs can be fed to both packages and their outputs compared.
+table, a segment stream, a kernel frontier, a txn dependency graph and
+a workload family's encoded columns made by the JAX package (or
+anything shaped like them — duck typing, no import of that package)
+become the port's objects on a given device, so one set of numpy
+inputs can be fed to both packages and their outputs compared.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import numpy as np
 import torch
 
 from .checker.linear_torch import SegmentStream
+from .checker.wl import bank as _bank
+from .checker.wl import dirty as _dirty
+from .checker.wl import sets as _sets
 from .utils import resolve_device
 
 
@@ -61,3 +65,34 @@ def frontier_words(ws, device=None) -> torch.Tensor:
     rows = [np.asarray(w, np.int32) for w in ws]
     rows = [w[0] if w.ndim == 2 else w for w in rows]
     return torch.from_numpy(np.stack(rows)).to(resolve_device(device))
+
+
+def txn_planes(graph_or_adj, device=None) -> torch.Tensor:
+    """A txn dependency graph's (4, N, N) ww / wr / rw / rt planes as a
+    bool tensor on ``device``: ``graph_or_adj`` is anything with an
+    ``.adj`` (a ``TxnGraph`` of either package) or the adjacency array
+    itself (a ``TxnGraph.padded()``); a leading batch axis passes
+    through."""
+    adj = np.asarray(getattr(graph_or_adj, "adj", graph_or_adj), bool)
+    return torch.from_numpy(np.ascontiguousarray(adj)).to(
+        resolve_device(device))
+
+
+#: per workload family, a field only its columns have and the device
+#: planes its ``wl_*_check`` takes, in argument order
+_WL_FIELDS = (("transfers", _bank.DEVICE_FIELDS),
+              ("attempts", _sets.DEVICE_FIELDS),
+              ("failed", _dirty.DEVICE_FIELDS))
+
+
+def wl_columns(cols, device=None) -> tuple:
+    """A workload family's encoded columns — ``BankColumns``,
+    ``SetsColumns`` or ``DirtyColumns`` of either package — as the
+    tensors its ``wl_*_check`` takes, in argument order, on
+    ``device``."""
+    dev = resolve_device(device)
+    for marker, fields in _WL_FIELDS:
+        if hasattr(cols, marker):
+            return tuple(torch.from_numpy(np.ascontiguousarray(
+                getattr(cols, f))).to(dev) for f in fields)
+    raise TypeError(f"not a workload family's columns: {type(cols)!r}")

@@ -8,8 +8,11 @@ by construction. ``mutate`` then corrupts completions to produce
 mostly-invalid variants. This plays the role the reference fills with
 recorded known-good/known-bad EDN histories (`linearizable/filetest/`).
 
-Same generator as the JAX package's, draw for draw: the same
-``random.Random`` seed gives the same history in both packages.
+Same generators as the JAX package's, draw for draw: the same
+``random.Random`` seed gives the same history in both packages
+(register histories, and list-append txn histories with
+:func:`list_append_history`; :func:`txn_anomaly_history` gives one
+fixed history per Adya anomaly class).
 """
 
 from __future__ import annotations
@@ -134,6 +137,115 @@ def pinned_wide_history(n_pinned: int = 18,
             h.append(O.invoke(p, "read", None))
             h.append(O.ok(p, "read", i % 4))
     return h
+
+
+def list_append_history(rng: random.Random, n_procs: int = 3,
+                        n_txns: int = 12, n_keys: int = 3,
+                        max_micro: int = 4, p_info: float = 0.0,
+                        p_fail: float = 0.0) -> List[O.Op]:
+    """A serializable-by-construction list-append txn history: each
+    in-flight txn applies atomically at one random instant between
+    its invoke and completion (so the serial order extends realtime —
+    strictly serializable), reads return whole lists (version order
+    is recoverable Elle-style), and appended values are unique per
+    key. ``p_fail`` aborts a txn at its would-be apply point (nothing
+    applies); ``p_info`` loses a completion after apply
+    (indeterminate, writes visible)."""
+    store = {k: [] for k in range(n_keys)}
+    next_val = [0] * n_keys
+    procs = [_Proc(i) for i in range(n_procs)]
+    next_pid = n_procs
+    started = 0
+    h: List[O.Op] = []
+
+    def plan(pr):
+        mops = []
+        for _ in range(rng.randrange(1, max_micro + 1)):
+            k = rng.randrange(n_keys)
+            if rng.random() < 0.5:
+                mops.append(["append", k, None])   # value at apply
+            else:
+                mops.append(["r", k, None])
+        pr.value = mops
+
+    while True:
+        open_ = [p for p in procs if p.f is not None]
+        if started >= n_txns and not open_:
+            break
+        pr = rng.choice(open_ or procs) if started >= n_txns \
+            else rng.choice(procs)
+        if pr.f is None:
+            pr.f = "txn"
+            pr.applied = False
+            plan(pr)
+            h.append(O.invoke(
+                pr.name, "txn",
+                tuple((f, k, None) for f, k, _ in pr.value)))
+            started += 1
+        elif not pr.applied:
+            pr.applied = True
+            if p_fail and rng.random() < p_fail:
+                pr.result = ("fail", tuple(
+                    (f, k, None) for f, k, _ in pr.value))
+                continue
+            done = []
+            for f, k, _ in pr.value:
+                if f == "append":
+                    v = next_val[k]
+                    next_val[k] += 1
+                    store[k].append(v)
+                    done.append(("append", k, v))
+                else:
+                    done.append(("r", k, tuple(store[k])))
+            pr.result = ("ok", tuple(done))
+        else:
+            typ, val = pr.result
+            if p_info and rng.random() < p_info:
+                h.append(O.info(pr.name, "txn", val))
+                pr.name = next_pid
+                next_pid += 1
+            else:
+                h.append(O.Op(pr.name, typ, "txn", val))
+            pr.f = None
+    return h
+
+
+def txn_anomaly_history(kind: str) -> List[O.Op]:
+    """Deterministic seeded txn histories, one per Adya anomaly class
+    — the known-bad fixtures the serializability checker's tests and
+    the check.sh smoke gate on. ``clean`` is the known-good twin."""
+    def txn(p, mops, typ="ok"):
+        inv = tuple((f, k, None if f == "r" else v) for f, k, v in mops)
+        return [O.invoke(p, "txn", inv),
+                O.Op(p, typ, "txn", tuple(mops))]
+
+    if kind == "clean":
+        return (txn(0, [("append", 0, 1)])
+                + txn(1, [("r", 0, (1,)), ("append", 0, 2)])
+                + txn(2, [("r", 0, (1, 2))]))
+    if kind == "g0":
+        # final reads disagree on who wrote first: ww cycle t0 <-> t1
+        return (txn(0, [("append", 0, 1), ("append", 1, 2)])
+                + txn(1, [("append", 0, 3), ("append", 1, 4)])
+                + txn(2, [("r", 0, (1, 3)), ("r", 1, (4, 2))]))
+    if kind == "g1c":
+        # each txn reads the OTHER's append: wr cycle
+        return (txn(0, [("append", 0, 1), ("r", 1, (2,))])
+                + txn(1, [("append", 1, 2), ("r", 0, (1,))]))
+    if kind == "g1a":
+        # a failed txn's append observed by a committed read
+        return (txn(0, [("append", 0, 1)], typ="fail")
+                + txn(1, [("r", 0, (1,))]))
+    if kind == "g2-item":
+        # write skew: both read empty, each appends the other's key
+        return (txn(0, [("r", 0, ()), ("append", 1, 1)])
+                + txn(1, [("r", 1, ()), ("append", 0, 2)])
+                + txn(2, [("r", 0, (2,)), ("r", 1, (1,))]))
+    if kind == "duplicate":
+        # the -D no-dedup shape: one append observed twice
+        return (txn(0, [("append", 0, 1)])
+                + txn(1, [("r", 0, (1, 1))]))
+    raise ValueError(f"unknown anomaly kind {kind!r}")
 
 
 def concurrent_writes(k: int) -> List[O.Op]:

@@ -409,3 +409,86 @@ def test_mxu_on_the_card_matches_cpu(cuda):
               n_transitions=mm.n_transitions)
     assert MXU.check_device_mxu(*args, device="cuda", **kw) == \
         MXU.check_device_mxu(*args, device="cpu", **kw)
+
+
+# --- the checker layer: closure, check_txn, workload families -----------------
+
+def _closure_planes(seed, n):
+    """(4, n, n) planes: acyclic local ww / wr / rw chains, a dense
+    realtime plane, and on odd seeds an rw back edge (a G2 cycle)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    up = np.triu(np.ones((n, n), bool), 1)
+    band = up & ~np.triu(np.ones((n, n), bool), 7)
+    adj = np.zeros((4, n, n), bool)
+    for p in range(3):
+        adj[p] = band & (rng.random((n, n)) < 0.35)
+    adj[3] = up & (rng.random((n, n)) < 0.5)
+    if seed % 2:
+        adj[2, n - 1, 0] = True
+    return adj
+
+
+@pytest.mark.parametrize("realtime", [False, True])
+def test_closure_on_the_card_matches_the_host_scc(cuda, realtime):
+    import numpy as np
+
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+    from comdb2_tpu_torch.txn.scc import cyclic_layers_host
+
+    n = 512
+    for seed in (0, 1):
+        adj = _closure_planes(seed, n)
+        before = TCL.DISPATCHES
+        got = TCL.cyclic_layers_device(adj, realtime=realtime, device=cuda)
+        assert TCL.DISPATCHES == before + 1
+        assert np.array_equal(got, cyclic_layers_host(adj, realtime))
+    adjs = np.stack([_closure_planes(s, n) for s in range(4)])
+    got = TCL.closure_diag_batch(adjs, device=cuda)
+    for b in range(4):
+        assert np.array_equal(got[b], cyclic_layers_host(adjs[b], True))
+    assert got[1, 2].any() and not got[0].any()
+
+
+@pytest.mark.parametrize("family,violation", [
+    ("bank", None), ("bank", "total"), ("bank", "snapshot"),
+    ("sets", None), ("sets", "lost"), ("sets", "phantom"),
+    ("dirty", None), ("dirty", "dirty"), ("dirty", "malformed")])
+def test_wl_families_on_the_card_agree_with_the_host_oracle(cuda, family,
+                                                             violation):
+    from comdb2_tpu_torch.checker import wl as W
+    from comdb2_tpu_torch.checker.wl import batch as WB
+
+    if family == "bank":
+        hs, model = W.bank_batch(21, 40, n_transfers=100, n_reads=70,
+                                 violation=violation)
+    else:
+        gen = W.sets_batch if family == "sets" else W.dirty_batch
+        hs, model = gen(21, 40, violation=violation), None
+    before = WB.DISPATCHES
+    got = W.check_wl_batch(hs, family, model, device=cuda)
+    assert WB.DISPATCHES == before + 1
+    assert got == W.check_wl_batch(hs, family, model, device="cpu")
+    host = WB._host_fallback(hs, family, model)
+    assert all(WB.agrees_with_oracle(family, d, o, h)
+               for d, o, h in zip(got, host, hs))
+
+
+def test_check_txn_on_the_card_on_the_g2_fixture(cuda):
+    import os
+
+    from comdb2_tpu_torch.ops.history import parse_history
+    from comdb2_tpu_torch.txn import check_txn
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "txn",
+                        "g2_item.edn")
+    with open(path) as fh:
+        h = parse_history(fh.read())
+    before = TCL.DISPATCHES
+    got = check_txn(h, backend="device")
+    assert TCL.DISPATCHES == before + 1
+    assert got == check_txn(h, backend="host")
+    assert got["valid?"] is False
+    assert got["counterexample"]["class"] == "G2-item"

@@ -36,7 +36,12 @@ def test_package_has_the_slice_modules():
               "checker.seg_kernel", "checker.counterexample",
               "checker.linear", "checker.mxu", "checker.batch",
               "checker.pair_sort", "kernels.build", "convert",
-              "filetest"):
+              "filetest", "utils.intervals", "checker.checkers",
+              "checker.independent", "checker.workloads", "checker.wgl",
+              "checker.wl.bank", "checker.wl.sets", "checker.wl.dirty",
+              "checker.wl.batch", "checker.wl.synth", "txn.edges",
+              "txn.scc", "txn.closure_torch", "txn.counterexample",
+              "txn.check", "txn.adapters"):
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
