@@ -8,8 +8,9 @@ Run from the root of a checkout on a host with one CUDA card:
 It builds every kernel from the sources in the checkout (one ``nvcc``
 per source, all at once), drives the port's main paths through their
 public entry points (``checker.analysis``, ``filetest``,
-``checker.batch.check_batch``, and the checker layer's ``txn.check_txn``,
-``checker.wl.check_wl_batch`` and ``IndependentChecker``) at full size, holds every kernel against
+``checker.batch.check_batch`` with every engine, and the checker
+layer's ``txn.check_txn``, ``checker.wl.check_wl_batch`` and
+``IndependentChecker``) at full size, holds every kernel against
 its plain PyTorch version on the same card tensors, and times both. It
 imports nothing of JAX and nothing of the JAX package, and falls back
 to nothing: any failure exits non-zero before the result line.
@@ -85,8 +86,38 @@ The checker layer, counted as a third path:
   ``--checker wgl`` / ``--checker set`` on a register / set history:
   exit codes 0 valid, 1 invalid.
 
+The last batch engines, counted as a fourth path:
+
+- (j) ``check_batch(engine="auto", F=8192)`` on 512 eight-process
+  ``register_history`` lanes of 2000 events over 8 values (about 77
+  transitions, so only the vmap engine serves the escalation); lanes
+  0-7 keep up to 8 calls in flight and overflow the kernel's 128, and
+  have one ok value corrupted in their last tenth (four of them turn
+  INVALID): the stream kernel, then the vmap engine on the overflowed
+  lanes, VALID and INVALID mixed. Every lane equal to its own
+  ``analysis`` on the card, the escalated ones also to ``linear_host``;
+  the escalation's wall and card span and the vmap engine's host syncs.
+  After the counts, the group streams of lanes 0-7 (and two more) of
+  (j)'s own launch are held bit-equal against the plain stream version;
+- (j2) (h)'s 48 five-process histories at F=8192 through
+  ``engine="flat"``, ``"vmap"`` and ``"keys"``: flat and vmap equal
+  keys in status and fail index, and in ``n_final`` on VALID lanes;
+  each engine's card span (CUDA events) and wall, closure iterations,
+  host syncs, CUDA kernels per closure iteration (``torch.profiler`` on
+  a prefix of the run) and bytes bound (frontier rows read and written
+  once per iteration). The widest rows that keys sorted here are held
+  bit-equal against ``pair_sort_reference``.
+
+In the single-history path, (e3) is (e) again with ``filetest --trace``:
+the span totals per stage (parse, pack, device with segments / kernel /
+decode inside, finalize) and the parser that ran — the C++ loader when
+``native/build/libct_sut.so`` is built (the script builds it with
+``cmake`` at its start when it is missing and ``cmake`` is there), else
+the Python reader.
+
 Then: (d') the seg2 engine on the card against the same engine on CPU
-tensors for history (d); kernel parity on the card for ``seg_search``
+tensors on history (d)'s first ``D_PRIME`` = 512 segments (the card
+also runs all 2048); kernel parity on the card for ``seg_search``
 (windows of (a)-(d); the 64-segment stretch of (c)'s head window whose
 closures are the largest, found by the plain version; and
 ``concurrent_writes(k)`` histories whose closures take the kernel's
@@ -146,11 +177,13 @@ INT32_LANES_PER_SM = 64              # Hopper's INT32 units per SM
 G_HISTORIES, G_OPS = 4096, 2000      # (g), the batch north star
 MIN_STREAMS = 132                    # the H100's SM count
 DEEP = 64              # segments of (c)'s deepest stretch
+D_PRIME = 512          # (d)'s segments that (d') runs on CPU tensors too
 BF16_FLOPS = 989e12    # the H100's dense bf16 tensor-core peak (SXM)
 CLOSURE_N, CLOSURE_BATCH, CLOSURE_BATCH_N = 4096, 8, 1024   # (t)
 TXN_COUNT = 2400       # (t2): past check_txn's DEVICE_THRESHOLD
 WL_LANES = 512         # (w): the top WL_BATCH rung
 KEYS, KEY_EVENTS = 256, 2000                                 # (i)
+J_LANES, J_EVENTS, J_OVERFLOW, J_F = 512, 2000, 8, 8192     # (j), (j2)
 # what earlier runs of this script recorded on the card (PERF.md): per
 # request (valid, op_index, engine, frontier capacity), None where not
 # pinned; statuses per batch
@@ -1093,6 +1126,337 @@ def _checker_layer(dev, filetest_args=()):
     return rec
 
 
+def _start_native_build():
+    """Start building ``native/build/libct_sut.so`` (the C++ EDN loader
+    behind ``ops.native_loader``) when it is missing and ``cmake`` is
+    on the PATH; returns the process or None. Its log goes to
+    ``native/build/build.log``."""
+    import shutil
+
+    build_dir = os.path.join(HERE, "native", "build")
+    if (os.path.exists(os.path.join(build_dir, "libct_sut.so"))
+            or not os.path.isdir(os.path.join(HERE, "native"))
+            or shutil.which("cmake") is None):
+        return None
+    os.makedirs(build_dir, exist_ok=True)
+    log = open(os.path.join(build_dir, "build.log"), "w")
+    cmd = ("cmake -S native -B native/build -DCMAKE_BUILD_TYPE=Release && "
+           "cmake --build native/build --target ct_sut -j 8")
+    proc = subprocess.Popen(["bash", "-c", cmd], cwd=HERE, stdout=log,
+                            stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
+
+
+def _finish_native_build(proc) -> str:
+    """Wait for :func:`_start_native_build`'s process; returns what
+    happened, for the output."""
+    if proc is None:
+        return "not started (built already, or no cmake)"
+    try:
+        rc = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "timeout"
+    proc.log.close()
+    return f"cmake exit {rc}"
+
+
+def _trace_stages(path):
+    """Summed milliseconds per span name of a ``--trace`` file, and the
+    parse span's ``parser``."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    stages = {}
+    parser = None
+    for ev in doc["traceEvents"]:
+        stages[ev["name"]] = stages.get(ev["name"], 0.0) + ev["dur"] / 1e3
+        if ev["name"] == "filetest.parse":
+            parser = ev["args"].get("parser")
+    return stages, parser, doc["otherData"]["dropped_spans"]
+
+
+def _j_histories():
+    """(j): ``J_LANES`` eight-process register histories of
+    ``J_EVENTS`` events over 8 values (the union table has about 77
+    transitions, so at P = 8 neither the 62-bit key layout nor the flat
+    budget fits, and MXU serves P >= 16 only: vmap is the escalation
+    engine); lanes 0 to ``J_OVERFLOW - 1`` keep up to 8 calls in flight
+    and overflow the kernel's 128 configs, the rest at most 4. Each
+    overflowing lane has one ok value corrupted in its last tenth,
+    after the kernel's overflow, so the escalated lanes mix VALID and
+    INVALID ones (lanes 0, 1, 3 and 6 are INVALID)."""
+    from comdb2_tpu_torch.ops.synth import mutate, register_history
+
+    hs = []
+    for i in range(J_LANES):
+        h = register_history(random.Random(6000 + i), n_procs=8,
+                             n_events=J_EVENTS, values=8, p_info=0.0,
+                             max_pending=8 if i < J_OVERFLOW else 4)
+        if i < J_OVERFLOW:
+            k = len(h) * 9 // 10
+            h = h[:k] + mutate(random.Random(7000 + i), h[k:], values=8)
+        hs.append(h)
+    return hs
+
+
+def _engine_run(fn, dev):
+    """One engine call: its result, wall seconds (host clock ending in
+    a synchronise) and card span in ms (CUDA events around the call,
+    idle gaps between the host's launches included)."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, e0.elapsed_time(e1)
+
+
+def _busy_profile(fn):
+    """CUDA kernels, their summed ms and the card span of one call of
+    ``fn`` under ``torch.profiler`` (None when the profiler sees no
+    device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as e:               # measurement only, never a gate
+        print(f"  (torch.profiler: {type(e).__name__}: {e})")
+        return None
+    if not ev:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    span = (max(e.time_range.end for e in ev)
+            - min(e.time_range.start for e in ev)) / 1e3
+    return {"kernels": len(ev), "busy_ms": busy, "span_ms": span}
+
+
+def _lane_row_bytes(P: int) -> int:
+    """Bytes of one frontier row of the flat and vmap engines: state
+    int32, P slots int32, valid bool."""
+    return 4 + 4 * P + 1
+
+
+def _engine_numbers(name, stats, card_ms, wall_s, prof, P, iters_prof):
+    """The PERF numbers of one flat / vmap run: the bytes bound counts
+    each closure iteration reading its frontier rows once and writing
+    them once (``stats["rows"]``) at the HBM rate."""
+    bound = 2 * stats["rows"] * _lane_row_bytes(P) / HBM_BYTES_PER_S * 1e3
+    rec = {"label": name, "card_ms": card_ms, "wall_s": wall_s,
+           "closure_iterations": stats["closure_iterations"],
+           "frontier_rows": stats["rows"],
+           "host_syncs": stats["host_syncs"], "bound_ms": bound,
+           "bound_by": "bytes"}
+    if prof is not None and iters_prof:
+        rec["profiled_prefix"] = dict(prof, closure_iterations=iters_prof)
+        rec["kernels_per_iteration"] = prof["kernels"] / iters_prof
+        rec["busy_share_of_prefix"] = prof["busy_ms"] / max(
+            prof["span_ms"], 1e-9)
+    print(f"  {name}: card {card_ms:.2f} ms (CUDA events), wall "
+          f"{wall_s:.3f} s, {stats['closure_iterations']} closure "
+          f"iterations over {stats['rows']} frontier rows, "
+          f"{stats['host_syncs']} host syncs, bound {bound:.4f} ms "
+          f"(bytes)"
+          + (f"; profiled prefix: {prof['kernels']} CUDA kernels in "
+             f"{iters_prof} iterations = "
+             f"{rec['kernels_per_iteration']:.1f} per iteration, card "
+             f"busy {prof['busy_ms']:.2f} of {prof['span_ms']:.2f} ms"
+             if "kernels_per_iteration" in rec else ""))
+    return rec
+
+
+def _escalation_requests(dev, rec):
+    """Path 4, the last batch engines: (j) the stream kernel, its
+    overflow escalated through the vmap engine; (j2) (h)'s five-process
+    lanes through flat, vmap and keys. Fills ``rec``; returns the
+    comparisons to make after the path's counts are read. Raises
+    ``_Failed``."""
+    import numpy as np
+
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.checker import linear_torch as LT
+    from comdb2_tpu_torch.models.model import cas_register
+
+    t0 = time.perf_counter()
+    hs_j = _j_histories()
+    batch_j = TB.pack_batch(hs_j, cas_register())
+    t_pack = time.perf_counter() - t0
+    m = batch_j.memo
+    info: dict = {}
+    (st, fa, n), wall, card = _engine_run(
+        lambda: TB.check_batch(batch_j, F=J_F, info=info, device=dev), dev)
+    esc = info.get("escalated") or {}
+    rec["j"] = {"lanes": J_LANES, "events": J_EVENTS, "F": J_F,
+                "table": [m.n_states, m.n_transitions], "P": batch_j.P,
+                "pack_s": t_pack, "wall_s": wall, "card_span_ms": card,
+                "engine": info.get("engine"), "escalated": esc,
+                "escalation_s": info.get("escalation_s"),
+                "stream": info.get("stream"),
+                "status_counts": {int(k): int(v) for k, v in zip(
+                    *np.unique(st, return_counts=True))}}
+    print(f"request j: {J_LANES} x {J_EVENTS} events, table "
+          f"{m.n_states}x{m.n_transitions}, F={J_F}: engine "
+          f"{info.get('engine')}, escalated {esc.get('count')} lanes "
+          f"through {esc.get('engine')} in {info.get('escalation_s', 0):.3f}"
+          f" s ({(esc.get('engine_stats') or {}).get('host_syncs')} host "
+          f"syncs); request wall {wall:.3f} s (pack {t_pack:.2f} s), card "
+          f"span {card:.1f} ms; statuses {rec['j']['status_counts']}")
+    _expect(info.get("engine") == "stream" and esc.get("engine") == "vmap"
+            and esc.get("count", 0) >= J_OVERFLOW,
+            f"(j) did not run the stream kernel and escalate at least "
+            f"{J_OVERFLOW} lanes through vmap: {rec['j']}")
+
+    # (j2): (h)'s five-process lanes through flat, vmap and keys
+    hs_h5 = [h for h in _h_histories()
+             if len({op.process for op in h}) == 5]
+    batch_h5 = TB.pack_batch(hs_h5, cas_register())
+    out = {}
+    for engine in ("keys", "flat", "vmap"):
+        inf: dict = {}
+        res, wall, card = _engine_run(
+            lambda: TB.check_batch(batch_h5, F=J_F, engine=engine,
+                                   info=inf, device=dev), dev)
+        out[engine] = (res, wall, card, inf)
+        print(f"request j2 {engine}: {len(hs_h5)} lanes F={J_F}: wall "
+              f"{wall:.3f} s, card span {card:.1f} ms, engine "
+              f"{inf.get('engine')}, stats {inf.get('engine_stats')}")
+    rec["j2"] = {"lanes": len(hs_h5), "F": J_F,
+                 "runs": {k: {"wall_s": v[1], "card_span_ms": v[2],
+                              "engine": v[3].get("engine"),
+                              "engine_stats": v[3].get("engine_stats")}
+                          for k, v in out.items()}}
+    keys = out["keys"][0]
+    valid = keys[0] == 0
+    for engine in ("flat", "vmap"):
+        got = out[engine][0]
+        _expect(out[engine][3].get("engine") == engine
+                and got[0].tolist() == keys[0].tolist()
+                and got[1].tolist() == keys[1].tolist()
+                and got[2][valid].tolist() == keys[2][valid].tolist(),
+                f"(j2) {engine} differs from keys: status "
+                f"{got[0].tolist()} fail {got[1].tolist()} against "
+                f"{keys[0].tolist()} {keys[1].tolist()}")
+    rec["j2"]["statuses"] = {int(k): int(v) for k, v in zip(
+        *np.unique(keys[0], return_counts=True))}
+    _expect(set(range(J_OVERFLOW)) <= set(info["escalation_lanes"]),
+            f"(j) lanes 0-{J_OVERFLOW - 1} did not all escalate: "
+            f"{info['escalation_lanes']}")
+    esc_st = {int(st[i]) for i in info["escalation_lanes"]}
+    rec["j"]["escalated_statuses"] = sorted(
+        (int(i), int(st[i]), int(fa[i])) for i in info["escalation_lanes"])
+    _expect({LT.VALID, LT.INVALID} <= esc_st,
+            f"(j) the escalated lanes do not mix VALID and INVALID: "
+            f"{esc_st}")
+    return hs_j, batch_j, info, (st, fa, n), info["escalation_lanes"], \
+        batch_h5, out
+
+
+def _escalation_comparisons(dev, rec, hs_j, batch_j, info_j, res_j,
+                            esc_lanes, batch_h5, out_j2):
+    """After path 4's counts: every (j) lane against its own
+    single-history ``analysis`` on the card, the escalated lanes also
+    against the host search; then each engine re-run for its numbers
+    (card span, host syncs, kernels per closure iteration from a
+    profiled prefix, bytes bound)."""
+    import numpy as np
+
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.checker import linear_host
+    from comdb2_tpu_torch.checker import linear_torch as LT
+    from comdb2_tpu_torch.models.memo import memo
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.packed import pack_history
+    from comdb2_tpu_torch.utils import next_pow2
+
+    st, fa, _ = res_j
+    t0 = time.perf_counter()
+    lanes, mismatched = _lanes_vs_analysis(hs_j, st, fa)
+    t_an = time.perf_counter() - t0
+    host_bad = []
+    for i in esc_lanes:
+        p = pack_history(hs_j[i])
+        r = linear_host.check(memo(cas_register(), p), p)
+        want = (LT.VALID if r.valid else LT.INVALID,
+                -1 if r.valid else r.op_index)
+        if (int(st[i]), int(fa[i])) != want:
+            host_bad.append((i, want))
+    rec["j"].update(lanes_mismatched=mismatched, analysis_s=t_an,
+                    host_mismatched=host_bad)
+    print(f"  j: {J_LANES} lanes against their own analysis in "
+          f"{t_an:.1f} s: {len(mismatched)} differ; the "
+          f"{len(esc_lanes)} escalated lanes against linear_host: "
+          f"{len(host_bad)} differ")
+    _expect(not mismatched, f"(j) lanes {mismatched[:10]} differ from "
+            f"their single-history analysis: "
+            f"{[lanes[i] for i in mismatched[:10]]}")
+    _expect(not host_bad, f"(j) lanes differ from linear_host: {host_bad}")
+
+    # the escalation again, alone: the vmap engine on the overflowed
+    # lanes, as check_batch ran it (same memo, table and slot width)
+    m = batch_j.memo
+    succ = LT.pad_succ(m.succ, next_pow2(m.n_states),
+                       next_pow2(m.n_transitions))
+    P = next_pow2(batch_j.P, 2)
+    idx = list(esc_lanes)
+    stats: dict = {}
+    args = (succ, batch_j.kind[idx], batch_j.proc[idx], batch_j.tr[idx])
+    kw = dict(F=J_F, P=P, n_states=m.n_states,
+              n_transitions=m.n_transitions, device=dev)
+    r, wall, card = _engine_run(
+        lambda: LT.check_device_batch(*args, stats=stats, **kw), dev)
+    _expect(r[0].tolist() == [int(st[i]) for i in idx]
+            and r[1].tolist() == [int(fa[i]) for i in idx],
+            "(j) the vmap engine alone differs from its escalation")
+    pre_stats: dict = {}
+    n_pre = 64
+    prof = _busy_profile(lambda: LT.check_device_batch(
+        succ, batch_j.kind[idx, :n_pre], batch_j.proc[idx, :n_pre],
+        batch_j.tr[idx, :n_pre], stats=pre_stats, **kw))
+    rec["j"]["vmap"] = _engine_numbers(
+        f"j vmap ({len(idx)} escalated lanes)", stats, card, wall, prof, P,
+        pre_stats.get("closure_iterations"))
+
+    # (j2): flat and vmap numbers at (h)'s five-process lanes
+    m5 = batch_h5.memo
+    succ5 = LT.pad_succ(m5.succ, next_pow2(m5.n_states),
+                        next_pow2(m5.n_transitions))
+    P5 = next_pow2(batch_h5.P, 2)
+    kw5 = dict(F=J_F, P=P5, n_states=m5.n_states,
+               n_transitions=m5.n_transitions, device=dev)
+    sb = TB.segment_batch(batch_h5)
+    B5 = len(batch_h5)
+    for engine in ("flat", "vmap"):
+        stats = out_j2[engine][3]["engine_stats"]
+        pre_stats = {}
+        if engine == "flat":
+            n_pre = 16
+            prof = _busy_profile(lambda: LT.check_device_flat(
+                succ5, sb.inv_proc[:n_pre], sb.inv_tr[:n_pre],
+                sb.ok_proc[:n_pre], sb.depth[:n_pre], B=B5,
+                stats=pre_stats, **kw5))
+        else:
+            n_pre = 64
+            prof = _busy_profile(lambda: LT.check_device_batch(
+                succ5, batch_h5.kind[:, :n_pre], batch_h5.proc[:, :n_pre],
+                batch_h5.tr[:, :n_pre], stats=pre_stats, **kw5))
+        rec["j2"]["runs"][engine].update(_engine_numbers(
+            f"j2 {engine}", stats, out_j2[engine][2], out_j2[engine][1],
+            prof, P5, pre_stats.get("closure_iterations")))
+
+
 def main() -> int:
     try:
         import torch
@@ -1134,6 +1498,7 @@ def main() -> int:
     print(f"int32 rate for the bounds: {int32_rate:.4e} op/s "
           f"({INT32_LANES_PER_SM} lanes x SMs x max SM clock); HBM "
           f"{HBM_BYTES_PER_S:.3e} B/s")
+    native_build = _start_native_build()
     t = time.perf_counter()
     build.build_all()
     for name in build.SOURCES:
@@ -1216,12 +1581,25 @@ def main() -> int:
             break
     c = run("c", h_c)
     d = run("d", h_d)
+    native_state = _finish_native_build(native_build)
     t0 = time.perf_counter()
     rc_e = filetest.main([edn_path])
-    edn_dir.cleanup()
     results["e"] = {"exit": rc_e, "want": want_rc,
                     "wall_s": time.perf_counter() - t0}
     print(f"request e: filetest exit {rc_e} (want {want_rc})")
+    # (e3): the same request with --trace, for the host breakdown
+    trace_path = os.path.join(edn_dir.name, "trace.json")
+    t0 = time.perf_counter()
+    rc_e3 = filetest.main([edn_path, "--trace", trace_path])
+    wall_e3 = time.perf_counter() - t0
+    stages_e3, parser_e3, dropped_e3 = _trace_stages(trace_path)
+    edn_dir.cleanup()
+    results["e3"] = {"exit": rc_e3, "wall_s": wall_e3, "parser": parser_e3,
+                     "native_build": native_state, "stages_ms": stages_e3,
+                     "dropped_spans": dropped_e3}
+    print(f"request e3: filetest --trace exit {rc_e3}, wall {wall_e3:.3f} "
+          f"s, parser {parser_e3} (native build: {native_state}); span "
+          f"ms: " + ", ".join(f"{k} {v:.2f}" for k, v in stages_e3.items()))
     f = run("f", h_f, backend="device")
     launches = SK.LAUNCHES
     path_counts = {"single-history": counts()}
@@ -1242,6 +1620,11 @@ def main() -> int:
          f"(d) not tried on the kernel first and decided VALID by the "
          f"seg2 ladder: {results['d']}"),
         (rc_e == want_rc, f"(e) filetest exit {rc_e}, want {want_rc}"),
+        (rc_e3 == rc_e and dropped_e3 == 0
+         and {"filetest.parse", "linear.pack", "linear.device",
+              "linear.kernel", "filetest.finalize"} <= set(stages_e3),
+         f"(e3) filetest --trace exit {rc_e3} (without: {rc_e}) or stage "
+         f"spans missing: {results['e3']}"),
         (f.valid is True and f.info.get("engine") == "mxu-frontier"
          and f.info.get("frontier_capacity") == 131072
          and f.final_count == 1,
@@ -1276,20 +1659,31 @@ def main() -> int:
     args_d = (succ_d, segs_d.inv_proc, segs_d.inv_tr, segs_d.ok_proc,
               segs_d.depth)
     t0 = time.perf_counter()
-    r_gpu = LT.check_device_seg2(*args_d, device=dev, **kw_d)
+    r_full = LT.check_device_seg2(*args_d, device=dev, **kw_d)
+    t_full = time.perf_counter() - t0
+    # the CPU side, at about 37 ms a segment, on (d)'s first D_PRIME
+    # segments, both sides from the same initial carry
+    args_p = (succ_d, *(a[:D_PRIME] for a in args_d[1:]))
+    t0 = time.perf_counter()
+    r_gpu = LT.check_device_seg2(*args_p, device=dev, **kw_d)
     t_gpu = time.perf_counter() - t0
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     t0 = time.perf_counter()
-    r_cpu = LT.check_device_seg2(*args_d, device="cpu", **kw_d)
+    r_cpu = LT.check_device_seg2(*args_p, device="cpu", **kw_d)
     t_cpu = time.perf_counter() - t0
     torch.set_num_threads(threads)
-    results["d'"] = {"F": kw_d["F"], "card": r_gpu, "cpu": r_cpu,
-                     "card_s": t_gpu, "cpu_s": t_cpu}
-    print(f"request d': seg2 at F={kw_d['F']} on the card {r_gpu} in "
-          f"{t_gpu:.2f} s, on CPU tensors {r_cpu} in {t_cpu:.2f} s")
-    if r_gpu != r_cpu or r_gpu[0] != LT.VALID:
-        return _fail(f"(d') seg2 on the card {r_gpu} != on CPU {r_cpu}")
+    results["d'"] = {"F": kw_d["F"], "card_all": r_full,
+                     "card_all_s": t_full, "segments": D_PRIME,
+                     "card": r_gpu, "cpu": r_cpu, "card_s": t_gpu,
+                     "cpu_s": t_cpu}
+    print(f"request d': seg2 at F={kw_d['F']} on the card {r_full} in "
+          f"{t_full:.2f} s; on the first {D_PRIME} segments, on the card "
+          f"{r_gpu} in {t_gpu:.2f} s, on CPU tensors {r_cpu} in "
+          f"{t_cpu:.2f} s")
+    if r_gpu != r_cpu or r_full[0] != LT.VALID or r_gpu[0] != LT.VALID:
+        return _fail(f"(d') seg2 on the card {r_gpu} != on CPU {r_cpu}, "
+                     f"or not VALID (all of (d) on the card: {r_full})")
 
     # --- path 2: batches, counted -----------------------------------------
     t0 = time.perf_counter()
@@ -1317,15 +1711,19 @@ def main() -> int:
     batch_h = TB.pack_batch(hs_h, cas_register())
     hs_h10 = _h10_histories()
     batch_h10 = TB.pack_batch(hs_h10, cas_register())
-    captured = {}
+    # the widest rows the keys engine sorts on each counted path, for
+    # the pair_sort parity below
+    captured = {"h": {}, "j2": {}}
     sort_fn = PSORT.pair_sort
 
-    def capturing_sort(hi, lo):
-        if hi.numel() > captured.get("numel", 0):
-            captured.update(numel=hi.numel(), hi=hi.clone(), lo=lo.clone())
-        return sort_fn(hi, lo)
+    def capturing_sort(into):
+        def sort(hi, lo):
+            if hi.numel() > into.get("numel", 0):
+                into.update(numel=hi.numel(), hi=hi.clone(), lo=lo.clone())
+            return sort_fn(hi, lo)
+        return sort
 
-    PSORT.pair_sort = capturing_sort
+    PSORT.pair_sort = capturing_sort(captured["h"])
     zero_counts()
     batch_res = {}
 
@@ -1429,6 +1827,31 @@ def main() -> int:
             and path_counts["checker layer"]["wl_check"] > 0):
         return _fail(f"the checker-layer path launched no stream kernel, "
                      f"closure or wl program: {path_counts}")
+
+    # --- path 4: the last batch engines, counted --------------------------
+    print("last batch engines: (j) stream kernel + vmap escalation, (j2) "
+          "flat / vmap / keys")
+    PSORT.pair_sort = capturing_sort(captured["j2"])
+    zero_counts()
+    t0 = time.perf_counter()
+    escal_rec: dict = {}
+    try:
+        j_args = _escalation_requests(dev, escal_rec)
+        path_counts["last batch engines"] = counts()
+        PSORT.pair_sort = sort_fn
+        _escalation_comparisons(dev, escal_rec, *j_args)
+    except _Failed as e:
+        return _fail(str(e))
+    PSORT.pair_sort = sort_fn
+    hs_j, batch_j, info_j = j_args[:3]
+    del j_args
+    print(f"  (path 4 took {time.perf_counter() - t0:.1f} s)")
+    print(f"LAUNCHES (last-batch-engines path): "
+          f"{path_counts['last batch engines']}")
+    if not (path_counts["last batch engines"]["seg_search[stream]"] > 0
+            and path_counts["last batch engines"]["pair_sort"] > 0):
+        return _fail(f"the last-batch-engines path launched no stream "
+                     f"kernel or pair sort: {path_counts}")
 
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
@@ -1590,6 +2013,36 @@ def main() -> int:
             and torch.equal(need2, need_g[pick])):
         return _fail("(g)'s two group streams alone differ from the same "
                      "groups in the whole launch")
+    # (j)'s launch, re-run outside the counted path: the group streams
+    # that hold the overflowing (mutated) lanes 0 to J_OVERFLOW - 1, the
+    # longest one and the one holding the last lane, held against the
+    # plain version and against the same groups in the whole launch
+    (streams_j, stride_j, spec_j, table_j, seg_j, plan_j,
+     _) = stream_inputs(batch_j, info_j)
+    n_hist_j = max(len(g_) for g_ in plan_j)
+    res_j = SK.seg_search_stream(seg_j, stride_j, table_j, spec_j, n_hist_j)
+    group_of = {b: g_ for g_, grp in enumerate(plan_j) for b in grp}
+    real_j = [sum(streams_j[b].ok_proc.shape[0] for b in grp) + len(grp)
+              for grp in plan_j]
+    pick_j = sorted({group_of[i] for i in range(J_OVERFLOW)}
+                    | {max(range(len(plan_j)), key=lambda g_: real_j[g_]),
+                       group_of[len(hs_j) - 1]})
+    pick = torch.tensor(pick_j, device=dev)
+    got_j, _, _, _, e_ = stream_check(
+        f"(j) {len(pick_j)} of its {len(plan_j)} group streams (lanes "
+        f"0-{J_OVERFLOW - 1}, the longest, the last lane's)",
+        seg_j[pick].contiguous(), stride_j, table_j, spec_j, n_hist_j)
+    err_s = max(err_s, e_)
+    if not torch.equal(got_j, res_j[pick]):
+        return _fail("(j)'s picked group streams alone differ from the "
+                     "same groups in the whole launch")
+    over_j = [int(got_j[pick_j.index(group_of[i]),
+                        plan_j[group_of[i]].index(i), 0])
+              for i in range(J_OVERFLOW)]
+    if any(v != LT.UNKNOWN for v in over_j):
+        return _fail(f"(j) lanes 0-{J_OVERFLOW - 1} did not overflow the "
+                     f"kernel: statuses {over_j}")
+
     per_sm_g = SK.warp_streams_per_sm(spec_g, table_g.numel())
     batch_res["g"]["kernel"] = {
         "groups": int(seg_g.shape[0]), "rows_per_group": int(seg_g.shape[1]),
@@ -1633,15 +2086,16 @@ def main() -> int:
         "batch_bound_by": by_g,
         "batch_measured_on": f"(g), {int(seg_g.shape[0])} warp streams"})
 
-    # pair_sort: the widest rows the keys engine sorted in (h), random
-    # rows at the block-sort and the merge-pass widths, and the corners of
-    # its schedule: all-equal and reversed rows, corner words, rows of
-    # N = T and N = 2T, rows of one pair
-    hi_c, lo_c = captured["hi"], captured["lo"]
+    # pair_sort: the widest rows the keys engine sorted in (h) and in
+    # (j2), random rows at the block-sort and the merge-pass widths, and
+    # the corners of its schedule: all-equal and reversed rows, corner
+    # words, rows of N = T and N = 2T, rows of one pair
+    hi_c, lo_c = captured["h"]["hi"], captured["h"]["lo"]
     Bc, Nc = hi_c.shape
     T_ = PSORT.SMEM_N
     gen = torch.Generator(device="cpu").manual_seed(2)
-    cases = [("h", hi_c, lo_c)]
+    cases = [("h", hi_c, lo_c),
+             ("j2", captured["j2"]["hi"], captured["j2"]["lo"])]
     for B_, N_ in ((256, 4096), (4, 131072), (1, T_), (1, 2 * T_), (3, 1)):
         hi_r = torch.randint(-8, 8, (B_, N_), generator=gen,
                              dtype=torch.int32)
@@ -1752,6 +2206,7 @@ def main() -> int:
               "w") as fh:
         json.dump({"gpu": gpu, "requests": results, "batches": batch_res,
                    "checker_layer": checker_rec,
+                   "last_batch_engines": escal_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

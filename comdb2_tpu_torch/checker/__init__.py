@@ -2,8 +2,10 @@
 
 - :mod:`.linear_host` — host reference implementation of just-in-time
   linearization over a memoized model (``knossos/linear.clj``).
-- :mod:`.linear_torch` — the segment stream, the seg2 capacity engine
-  and the keys engine (torch ops).
+- :mod:`.linear_torch` — the segment stream and the torch-op engines:
+  seg2 (capacity ladder), big-only seg, per-op (and its batched vmap
+  form), keys and flat.
+- :mod:`.brute` — the exhaustive oracle for tiny histories.
 - :mod:`.seg_kernel` — the segment-search kernel (CUDA; single-history
   and RESET stream modes) and its plain PyTorch version.
 - :mod:`.pair_sort` — the per-row pair sort (CUDA) of the keys engine's

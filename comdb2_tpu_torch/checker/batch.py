@@ -10,18 +10,27 @@ check as ONE device computation:
 - engine ``stream``: every history through the segment-search kernel in
   its RESET stream mode, G group streams, one warp each
   (:func:`~.seg_kernel.stream_dispatch`); histories that overflow the
-  kernel's 128-config frontier escalate through ``keys`` / ``mxu`` at
+  kernel's 128-config frontier escalate through the engines below at
   the caller's capacity F;
 - engine ``keys``: the frontier as packed ``(hi, lo)`` int32 key pairs,
   one per-batch block sort per closure iteration
   (:func:`~.linear_torch.check_device_keys`, the pair-sort kernel on
   the card);
-- engine ``mxu``: the MXU frontier engine's batched form, for wide P.
+- engine ``mxu``: the MXU frontier engine's batched form, for wide P;
+- engine ``flat``: all frontiers as one explicit ``(B*F, P)`` tensor
+  with the batch id as the top field of a two-word sort key
+  (:func:`~.linear_torch.check_device_flat`);
+- engine ``vmap``: the per-op engine over the dense ``(B, n_pad)`` step
+  streams, every lane's closure frozen at its own fixed point
+  (:func:`~.linear_torch.check_device_batch`), the last resort that
+  serves every shape.
 
-Escalation picks ``mxu`` when the batch's slot count, rounded up to a
-power of two, reaches ``mxu.MIN_P`` = 16 (any batch with more than 8
-processes), else ``keys`` when its key layout fits: the pair sort runs
-only for batches of at most 8 slots.
+``auto`` and escalation pick in the JAX package's order: ``mxu`` when
+the batch's slot count, rounded up to a power of two, reaches
+``mxu.MIN_P`` = 16 (any batch with more than 8 processes), else
+``keys`` when its 62-bit key layout fits (the pair sort runs only for
+batches of at most 8 slots), else ``flat`` when its key budget fits,
+else ``vmap``.
 
 The reference's shape floors (``n_pad`` of :func:`pack_batch`,
 ``s_pad``/``k_pad`` of :func:`segment_batch`, and those with
@@ -33,9 +42,9 @@ shape, so they need none: ``n_pad``, ``s_pad`` and ``k_pad`` floor the
 host arrays as in the reference, and the table and slot floors are
 accepted and not used.
 
-Not ported yet: the ``flat`` and ``vmap`` engines, the mesh routes and
-``pack_batch_masked`` raise :class:`~.linear.EngineNotPorted` where the
-JAX package would pick them. ``check_batch_async`` stages nothing ahead:
+Not ported yet: the mesh routes raise
+:class:`~.linear.EngineNotPorted`, and ``pack_batch_masked`` is
+missing. ``check_batch_async`` stages nothing ahead:
 its ``finalize`` is computed when it is called, and the batch is not
 sliced for host/device overlap.
 """
@@ -128,8 +137,9 @@ def pack_batch(histories: Sequence[Union[Sequence[Op], PackedHistory]],
 
     ``n_pad`` floors the per-op stream width (a power of two at least
     the longest history). ``build_streams=False`` skips the dense
-    per-op (N, n_pad) step streams, which only the (not yet ported) vmap
-    engine reads."""
+    per-op (N, n_pad) step streams, which only the vmap engine reads:
+    such a batch checks through the other engines, and a kernel
+    overflow that only the vmap engine could take stays ``unknown``."""
     packeds = [h if isinstance(h, PackedHistory) else pack_history(list(h))
                for h in histories]
     union: List[tuple] = []
@@ -284,6 +294,22 @@ def _stream_stage(batch: PackedBatch, succ, sizes, device, info=None):
     return rs, segs_list
 
 
+def pick_engine(b: int, n_states: int, n_transitions: int, P: int) -> str:
+    """The engine for ``b`` histories of slot width ``P`` (a power of
+    two) over an ``n_states`` x ``n_transitions`` table, in the JAX
+    package's order: wide P goes to the MXU engine first; then the
+    key-pair engine when its 62-bit layout fits, the flat engine when
+    its budget fits, and the per-op vmap engine, which serves every
+    shape."""
+    if MXU.serves(n_states, n_transitions, P):
+        return "mxu"
+    if LT.KeyLayout(b, n_states, n_transitions, P).fits:
+        return "keys"
+    if LT.flat_pack_bits(b, n_states, n_transitions, P)[3]:
+        return "flat"
+    return "vmap"
+
+
 #: the reference's table and slot floors, which ``check_batch`` and
 #: ``check_batch_async`` accept as keywords (default 0) and do not use:
 #: the port sizes the table and the slots from the batch
@@ -313,13 +339,21 @@ def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
 
     engine: "stream" runs every history through the segment-search
     kernel's stream mode; "keys" keeps the frontier as packed int32 key
-    pairs; "mxu" is the wide-P engine; "auto" picks the stream kernel
-    when its gate fits, else the best of the others. ``device``:
-    ``None`` means ``cuda``.
+    pairs; "mxu" is the wide-P engine; "flat" folds all frontiers into
+    one explicit tensor with the batch id as the top sort field; "vmap"
+    is the per-op fallback over the dense step streams; "auto" picks
+    the stream kernel when its gate fits, else the first of mxu, keys,
+    flat and vmap that serves the shape. ``device``: ``None`` means
+    ``cuda``.
 
     The engines run when this is called (the batch is not sliced for
     host/device overlap yet): ``finalize`` only decodes and escalates.
-    ``info`` receives ``{"engine": name}`` for the path executed.
+    ``info`` receives ``{"engine": name}`` for the path executed; the
+    flat and vmap engines add ``engine_stats`` (closure iterations,
+    frontier rows expanded, host syncs), and an escalation
+    ``{"escalated": {"engine", "count", "engine_stats"}}``, its wall
+    time ``escalation_s`` and the escalated lanes
+    ``escalation_lanes``.
     ``s_pad``/``k_pad`` floor the keys and MXU engines' segment axes;
     the other keywords the reference takes (:data:`REFERENCE_PADS`) are
     accepted and not used, and any other keyword raises ``TypeError``."""
@@ -367,30 +401,14 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
         if info is not None:
             info["engine"] = name
 
-    def pick_xla_engine(b=None):
-        # wide P goes to the MXU engine first; then the key-pair engine
-        # when its 62-bit layout fits. ``b`` overrides the batch size
-        # (an escalated sub-batch is far smaller than the batch)
-        b = B if b is None else b
-        if MXU.serves(n_states, n_transitions, P):
-            return "mxu"
-        if LT.KeyLayout(b, n_states, n_transitions, P).fits:
-            return "keys"
-        raise EngineNotPorted(
-            f"check_batch: no ported engine serves B={b}, P={P}, table "
-            f"{n_states}x{n_transitions} (the flat and vmap engines are "
-            "not ported yet)")
-
     def stream_fits():
         # gate BEFORE the O(total-ops) segment pass; P is not final
         # here (slot renaming can shrink it), so check at P=1
         return SK.spec_for(n_states, n_transitions, 1, 8) is not None
 
     if engine == "auto":
-        engine = "stream" if stream_fits() else pick_xla_engine()
-    if engine in ("flat", "vmap"):
-        raise EngineNotPorted(f"check_batch: engine {engine!r} is not "
-                              "ported yet")
+        engine = ("stream" if stream_fits()
+                  else pick_engine(B, n_states, n_transitions, P))
     prebuilt_streams = None
     if engine == "stream":
         rs = None
@@ -413,14 +431,28 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                 # overflowed it get the requested budget F through the
                 # other engines instead of a spurious UNKNOWN
                 unk = escalation_indices(status, F, SK.F)
+                # the sub-batch's own size: its budgets fit where the
+                # whole batch's may not
+                esc_engine = pick_engine(max(int(unk.size), 1), n_states,
+                                         n_transitions, P)
+                if unk.size and batch.kind.shape[1] == 0 \
+                        and esc_engine == "vmap":
+                    # packed with build_streams=False and only the vmap
+                    # engine could take the overflow: those histories
+                    # stay unknown, and info says escalation was asked
+                    # for and impossible
+                    if info is not None:
+                        info["escalated"] = {"engine": None,
+                                             "count": int(unk.size)}
+                    unk = np.empty(0, np.int64)
                 if unk.size:
-                    esc_engine = pick_xla_engine(int(unk.size))
                     sub = PackedBatch(
                         packeds=[batch.packeds[i] for i in unk],
                         memo=batch.memo, kind=batch.kind[unk],
                         proc=batch.proc[unk], tr=batch.tr[unk],
                         P=batch.P, remaps=[batch.remaps[i] for i in unk])
                     sub_info: dict = {}
+                    t_esc = _obs.monotonic()
                     st2, fa2, n2 = check_batch(
                         sub, F=F, engine=esc_engine, info=sub_info,
                         s_pad=s_pad, k_pad=k_pad, device=dev)
@@ -430,15 +462,35 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                         info["escalated"] = {
                             "engine": sub_info.get("engine"),
                             "count": int(unk.size)}
+                        info["escalation_s"] = _obs.monotonic() - t_esc
+                        info["escalation_lanes"] = unk.tolist()
+                        if "engine_stats" in sub_info:
+                            info["escalated"]["engine_stats"] = \
+                                sub_info["engine_stats"]
                 return status, fail_at, n_final
 
             return finalize_stream
-        engine = pick_xla_engine()
-    if engine not in ("mxu", "keys"):
+        engine = pick_engine(B, n_states, n_transitions, P)
+    if engine not in ("mxu", "keys", "flat", "vmap"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "mxu" and not MXU.fits(n_states, n_transitions, P):
         raise ValueError("mxu engine requires the table caps and a "
                          "lossless PackPlan (see mxu.fits)")
+    if engine == "vmap":
+        if batch.kind.shape[1] == 0:
+            raise ValueError(
+                "batch was packed with build_streams=False; the vmap path "
+                "needs the dense step streams")
+        note(engine)
+        stats: dict = {}
+        out = LT.check_device_batch(succ, batch.kind, batch.proc, batch.tr,
+                                    F=F, P=P, device=dev, stats=stats,
+                                    **sizes)
+        if info is not None:
+            info["engine_stats"] = stats
+        res = tuple(x.cpu().numpy() for x in out)
+        return _obs.traced("batch.finalize")(
+            lambda: (res[0], res[1].astype(np.int64), res[2]))
     note(engine)
     if engine == "mxu":
         # bucket the caller's F to the engine's capacity ladder
@@ -447,11 +499,16 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
             info["frontier_capacity"] = F
     sb = segment_batch(batch, streams=prebuilt_streams, s_pad=s_pad,
                        k_pad=k_pad)
-    fn = (MXU.check_device_mxu_batch if engine == "mxu"
-          else LT.check_device_keys)
+    kw = {}
+    if engine == "flat":
+        kw["stats"] = stats = {}
+        if info is not None:
+            info["engine_stats"] = stats
+    fn = {"mxu": MXU.check_device_mxu_batch, "keys": LT.check_device_keys,
+          "flat": LT.check_device_flat}[engine]
     status_d, fail_seg_d, n_final_d = fn(
         succ, sb.inv_proc, sb.inv_tr, sb.ok_proc, sb.depth, B=B, F=F, P=P,
-        device=dev, **sizes)
+        device=dev, **sizes, **kw)
     status = status_d.cpu().numpy()[:B]
     fail_seg = fail_seg_d.cpu().numpy()[:B]
     n_final = n_final_d.cpu().numpy()[:B]
@@ -490,4 +547,4 @@ def merge_escalation(status, fail_at, n_final, idx, st2, fa2, n2):
 
 __all__ = ["PackedBatch", "SegmentBatch", "check_batch",
            "check_batch_async", "escalation_indices", "merge_escalation",
-           "pack_batch", "segment_batch"]
+           "pack_batch", "pick_engine", "segment_batch"]

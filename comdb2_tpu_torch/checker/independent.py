@@ -121,7 +121,8 @@ class IndependentChecker(Checker):
         # history (RuntimeError / KeyError from ``pack_history``'s
         # completion pass, ValueError) and a state space past the memo's
         # cap (MemoOverflow); from ``check_batch``, EngineNotPorted, a
-        # shape the port's batch engines cannot take yet. Every other
+        # route the port does not have (every engine shape is served
+        # now; only the mesh routes raise it). Every other
         # error — a kernel that does not build or launch, CUDA itself —
         # propagates, so a device fault can never pass as a verdict.
         try:

@@ -35,8 +35,8 @@ UNKNOWN = "unknown"
 
 
 class EngineNotPorted(NotImplementedError):
-    """The caller asked for an engine the port does not have yet (the
-    batch path's ``flat`` / ``vmap`` engines and mesh routes)."""
+    """The caller asked for a route the port does not have yet (the
+    batch path's mesh routes)."""
 
 
 @dataclass
@@ -190,16 +190,18 @@ def _analyze_device(mm: MemoizedModel, packed: PackedHistory,
     # and capacity escalation reuse it
     succ = LT.as_tensor(LT.pad_succ(mm.succ, _next_pow2(mm.succ.shape[0]),
                                     _next_pow2(mm.succ.shape[1])), device)
-    segs = LT.make_segments(packed)
-    s_real = segs.ok_proc.shape[0]
-    segs = LT.make_segments(
-        packed, s_pad=_next_pow2(s_real, 64),
-        k_pad=_next_pow2(segs.inv_proc.shape[1], 2))
-    # slot renaming: processes map to a minimal pool of reusable slots,
-    # so the slot axis scales with the history's max CONCURRENT open
-    # calls instead of its process count. Pure relabeling — verdicts
-    # and fail segments are unchanged (see LT.remap_slots).
-    segs, P_eff = LT.remap_slots(segs)
+    with _obs.span("linear.segments"):
+        segs = LT.make_segments(packed)
+        s_real = segs.ok_proc.shape[0]
+        segs = LT.make_segments(
+            packed, s_pad=_next_pow2(s_real, 64),
+            k_pad=_next_pow2(segs.inv_proc.shape[1], 2))
+        # slot renaming: processes map to a minimal pool of reusable
+        # slots, so the slot axis scales with the history's max
+        # CONCURRENT open calls instead of its process count. Pure
+        # relabeling — verdicts and fail segments are unchanged (see
+        # LT.remap_slots).
+        segs, P_eff = LT.remap_slots(segs)
     P = max(P_eff, 1)
     info: dict = {"backend": "device", "device": str(device),
                   "n_states": mm.n_states,
@@ -214,13 +216,14 @@ def _analyze_device(mm: MemoizedModel, packed: PackedHistory,
     # table over 8192 entries, keys wider than 3 words)
     P_k = kernel_slots(P)
     ksizes = dict(sizes, P=P_k, device=device)
-    if progress is None:
-        r = SK.check_device_seg_kernel(mm.succ, segs, **ksizes)
-    else:
-        r = SK.check_device_seg_kernel_chunked(
-            mm.succ, segs, progress=progress,
-            progress_interval_s=progress_interval_s, s_real=s_real,
-            **ksizes)
+    with _obs.span("linear.kernel", P=P_k):
+        if progress is None:
+            r = SK.check_device_seg_kernel(mm.succ, segs, **ksizes)
+        else:
+            r = SK.check_device_seg_kernel_chunked(
+                mm.succ, segs, progress=progress,
+                progress_interval_s=progress_interval_s, s_real=s_real,
+                **ksizes)
     if r is not None:
         status, fail_seg, n_final = r
         info["engine"] = engine_name(device)
@@ -387,6 +390,7 @@ def _analyze_mxu(mm: MemoizedModel, packed: PackedHistory, segs, succ,
                            info, device)
 
 
+@_obs.traced("linear.decode")
 def _device_verdict(mm, packed, segs, status, fail_seg, n_final,
                     info, device) -> Analysis:
     """Decode an engine's (status, fail_segment, n) into an Analysis."""

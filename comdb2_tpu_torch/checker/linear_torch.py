@@ -12,19 +12,29 @@ The counterpart of the JAX package's ``checker/linear_jax.py``:
   valid)`` of capacity F with the Fs=32 small tier;
 - the keys engine (:func:`check_device_keys`): B histories, frontier
   as ``(hi, lo)`` int32 key pairs, one per-block pair sort per closure
-  iteration (:mod:`.pair_sort`, a CUDA kernel on the card).
+  iteration (:mod:`.pair_sort`, a CUDA kernel on the card);
+- the per-op engine (:func:`check_device`, one step per op) and the
+  big-only segmented engine (:func:`check_device_seg`,
+  :func:`check_device_seg_chunk`), with their batched forms
+  (:func:`check_device_batch`, :func:`check_device_seg_batch`: the JAX
+  package's ``vmap``, one computation over B lanes whose closures each
+  stop at their own fixed point);
+- the flat engine (:func:`check_device_flat`): B histories in one
+  explicit frontier tensor, the batch id the top field of a two-word
+  sort key, the closure in lockstep.
 
 XLA ran the engines outside any Pallas kernel, so here they are torch
 ops on the inputs' device: ``jnp.lexsort`` becomes successive stable
 sorts, least significant key first; ``.at[t].set(mode="drop")`` a
 scatter into one extra drop row that is sliced off; ``lax.scan`` a
-host loop over segments and ``lax.while_loop`` a loop bounded by
-``depth``. Each closure iteration reads one flag back to the host.
+host loop over segments (or ops) and ``lax.while_loop`` a loop bounded
+by ``depth``. Each closure iteration reads one flag back to the host.
 The segment-search kernel itself lives in :mod:`.seg_kernel`.
 """
 
 from __future__ import annotations
 
+import functools
 import heapq
 import math
 from typing import NamedTuple, Optional
@@ -630,6 +640,16 @@ def expand_seg_carry(carry, F_new: int):
     return (states, slots, valid, count, VALID, -1)
 
 
+def _carry_on(carry, dev):
+    """A chunk carry with its frontier as tensors on ``dev`` and its
+    scalars as ints (a carry widened on the host by
+    :func:`expand_seg_carry_slots` holds numpy arrays)."""
+    states, slots, valid, count, status, fail = carry
+    return (as_tensor(states, dev), as_tensor(slots, dev),
+            as_tensor(valid, dev, torch.bool), int(count), int(status),
+            int(fail))
+
+
 def _seg2_tier(Fs, F):
     """Small-tier capacity actually used: None (big-only) when the
     requested tier can't sit strictly below F."""
@@ -710,9 +730,579 @@ def check_device_seg2_chunk(succ, inv_proc, inv_tr, ok_proc, depth,
     segment indices recorded as the fail segment."""
     dev = engine_device(succ, device)
     return _seg_scan(as_tensor(succ, dev), inv_proc, inv_tr, ok_proc,
-                     depth, int(seg_offset), carry, F, P,
+                     depth, int(seg_offset), _carry_on(carry, dev), F, P,
                      _bits_for(n_states, n_transitions, P),
                      _seg2_tier(Fs, F))
+
+
+# --- per-op engine: one history, one step per op -----------------------------
+
+def _count_sync(stats: Optional[dict]) -> None:
+    if stats is not None:
+        stats["host_syncs"] = stats.get("host_syncs", 0) + 1
+
+
+def check_device(succ, kind, proc, tr, *, F: int, P: int, n_states=None,
+                 n_transitions=None, device=None):
+    """The per-op search of one history: one step per row of its step
+    stream (:func:`make_stream`), the closure at every ok bounded by
+    P+1 iterations. One lane of :func:`check_device_batch`, as the JAX
+    package's batch form is the ``vmap`` of this one. Returns
+    ``(status, fail_index, n_final)`` as ints; ``fail_index`` is the
+    history index of the op at which the frontier died or overflowed.
+    The true ``n_states`` / ``n_transitions`` enable the packed dedup
+    (:class:`PackPlan`)."""
+    st, fa, n = check_device_batch(
+        succ, np.asarray(kind)[None], np.asarray(proc)[None],
+        np.asarray(tr)[None], F=F, P=P, n_states=n_states,
+        n_transitions=n_transitions, device=device)
+    return int(st[0]), int(fa[0]), int(n[0])
+
+
+# --- big-only seg engine: one history, one step per ok ------------------------
+
+def check_device_seg(succ, inv_proc, inv_tr, ok_proc, depth, *, F: int,
+                     P: int, n_states=None, n_transitions=None,
+                     device=None):
+    """Segmented search of one history at capacity F (no small tier):
+    one step per ok-op. Returns ``(status, fail_segment, n)`` as ints;
+    map ``fail_segment`` through ``SegmentStream.seg_index``."""
+    return check_device_seg2(succ, inv_proc, inv_tr, ok_proc, depth, F=F,
+                             P=P, Fs=None, n_states=n_states,
+                             n_transitions=n_transitions, device=device)
+
+
+def check_device_seg_chunk(succ, inv_proc, inv_tr, ok_proc, depth,
+                           seg_offset, carry, *, F: int, P: int,
+                           n_states=None, n_transitions=None, device=None):
+    """One chunk of the big-only segmented search (see
+    :func:`check_device_seg2_chunk`)."""
+    return check_device_seg2_chunk(succ, inv_proc, inv_tr, ok_proc, depth,
+                                   seg_offset, carry, F=F, P=P, Fs=None,
+                                   n_states=n_states,
+                                   n_transitions=n_transitions,
+                                   device=device)
+
+
+def expand_seg_carry_slots(carry, P_new: int):
+    """Widen a carry's SLOT axis (streaming sessions whose effective
+    concurrency grows mid-stream): new slots pad IDLE, which leaves
+    every config's meaning unchanged. Status, fail and count are kept:
+    a mid-stream widening, not a capacity escalation. Host numpy, as
+    in the JAX package: widenings are rare, and the next chunk moves
+    the widened carry to its device."""
+    states, slots, valid = (
+        x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        for x in carry[:3])
+    count, status, fail = (np.asarray(int(x), np.int32) for x in carry[3:])
+    pad = P_new - slots.shape[1]
+    if pad < 0:
+        raise ValueError("carry has more slots than target width")
+    if pad:
+        slots = np.pad(slots, ((0, 0), (0, pad)), constant_values=IDLE)
+    return (states, slots, valid, count, status, fail)
+
+
+# --- lanes: B histories' closures side by side (the vmap forms) ---------------
+#
+# ``jax.vmap`` of the per-op and the segmented engines runs every lane's
+# scan in lockstep, and each lane's ``while_loop`` carry freezes once
+# THAT lane's condition is false: a lane stops at its own fixed point,
+# its own overflow and its own bound. Here the lanes' frontiers sit in
+# one (L*F)-row tensor with the lane id as the leading sort field of the
+# dedup, and the freeze is explicit: each closure iteration runs only
+# the lanes still iterating (one host read of that set per iteration),
+# and a lane's rows are written back only while it iterates. A lane that
+# overflowed must not iterate on: its truncated frontier could fit again
+# and pass as VALID.
+
+@functools.lru_cache(maxsize=64)
+def _plan_key_layout(plan: PackPlan, device):
+    """Where :func:`_word_keys` puts each field of ``plan``: per field
+    (state, slot_0, ..) its int64 key column and bit shift, as tensors
+    on ``device``; the top word's column and bit offset; the number of
+    key columns."""
+    cols = [w // 2 for w, _ in plan.assign]
+    shifts = [sh + 31 * (w % 2) for w, sh in plan.assign]
+    top = plan.n_words - 1
+    return (torch.tensor(cols, dtype=torch.long, device=device),
+            torch.tensor(shifts, dtype=torch.long, device=device),
+            top // 2, 31 * (top % 2), (plan.n_words + 1) // 2)
+
+
+def _lane_keys(states, slots, valid, lane, plan, not_ret):
+    """int64 sort keys (columns, least significant first) ordering rows
+    by (lane, validity, config): the :class:`PackPlan` words folded in
+    pairs as :func:`_word_keys` folds them, built in one shift and one
+    scatter-add (fields never overlap). Invalid rows keep only the
+    sentinel bit 30 of the top word; ``not_ret`` (or None) is the okp
+    flag at its bit 29; the lane goes above the top word, or in a
+    column of its own when the top key is full."""
+    rows = states.shape[0]
+    cols, shifts, tcol, toff, nk = _plan_key_layout(plan, states.device)
+    fields = torch.cat([states[:, None], slots + 2], 1).long()
+    keys = torch.zeros(rows, nk, dtype=torch.long, device=states.device)
+    keys.scatter_add_(1, cols.expand(rows, -1), fields << shifts)
+    if not_ret is not None:
+        keys[:, tcol] += not_ret.long() << (29 + toff)
+    sentinel = torch.zeros(nk, dtype=torch.long, device=states.device)
+    sentinel[tcol] = 1 << (30 + toff)
+    keys = torch.where(valid[:, None], keys, sentinel)
+    if plan.n_words % 2:
+        keys[:, -1] |= lane << 31
+        return keys
+    return torch.cat([keys, lane[:, None]], 1)
+
+
+def _lane_dedup(states, slots, valid, L, F, plan, okp=None):
+    """Exact dedup of L lanes' rows at once. Each lane holds R = rows/L
+    rows, lane-major in blocks of F (the frontier) then F*P (its
+    candidates). Rows sort by (lane, validity, config); the first
+    ``min(n, F)`` kept rows of each lane, in sort order, fill its F-row
+    block. ``okp`` (an (L,) tensor of slots) orders each lane's rows
+    whose slot ``okp`` is linearized first, as the JAX package's
+    ``_dedup_compact`` does for the segmented engine (it decides which
+    rows an overflowing lane keeps). Returns ``(states, slots, valid,
+    n[L], overflow[L])`` with ``n`` the uncapped unique count."""
+    rows = states.shape[0]
+    P = slots.shape[1]
+    dev = states.device
+    nf = L * F
+    lane = torch.cat([torch.arange(nf, device=dev) // F,
+                      torch.arange(rows - nf, device=dev) // (F * P)])
+    not_ret = None
+    if okp is not None:
+        not_ret = (slots.gather(1, okp.index_select(0, lane)[:, None])[:, 0]
+                   != LIN).to(torch.int32)
+    if plan is not None:
+        keys = _lane_keys(states, slots, valid, lane, plan, not_ret)
+    else:
+        keys = torch.stack(
+            [slots[:, q] for q in range(P - 1, -1, -1)]
+            + [torch.where(valid, states, 0)]
+            + ([not_ret] if not_ret is not None else [])
+            + [(~valid).to(torch.int32), lane.to(torch.int32)], 1).long()
+    order = _lexsort(keys.unbind(1))
+    ks = take(keys, order)
+    va = take(valid, order)
+    pad = torch.zeros(1, dtype=torch.bool, device=dev)
+    keep = va & ~torch.cat([pad, (ks[1:] == ks[:-1]).all(1) & va[:-1]])
+    R = rows // L
+    c = torch.cumsum(keep, 0)
+    e = c - keep.long()
+    base = e[::R]
+    n_l = c[R - 1::R] - base
+    rank = e - base.repeat_interleave(R)
+    block = torch.arange(rows, device=dev) // R
+    target = torch.where(keep & (rank < F), block * F + rank, nf)
+    sel = torch.zeros(nf + 1, dtype=torch.long, device=dev)
+    sel[target] = order          # every dropped row lands on nf
+    sel = sel[:nf]
+    out_va = (torch.arange(F, device=dev)[None, :]
+              < n_l[:, None]).flatten()
+    return (take(states, sel), take(slots, sel), out_va, n_l, n_l > F)
+
+
+def _lane_closure(succ, states, slots, valid, n, L, F, P, plan, max_iter,
+                  okp=None, stats=None):
+    """L lanes' closures: the first iteration for every lane, then more
+    for each lane while its frontier grows, it has not overflowed and
+    it has run fewer than its ``max_iter`` (an (L,) tensor)
+    iterations. ``okp``: an (L,) tensor for :func:`_lane_dedup`, or
+    None. Returns ``(states, slots, valid, n, overflow)``."""
+
+    def body(st, sl, va, lanes, ok_slots):
+        c_st, c_sl, c_va = _expand(succ, st, sl, va)
+        if stats is not None:
+            stats["closure_iterations"] = stats.get(
+                "closure_iterations", 0) + 1
+            stats["rows"] = stats.get("rows", 0) + st.shape[0]
+        return _lane_dedup(torch.cat([st, c_st]), torch.cat([sl, c_sl]),
+                           torch.cat([va, c_va]), lanes, F, plan,
+                           ok_slots)
+
+    st, sl, va, n2, ovf = body(states, slots, valid, L, okp)
+    it = 1
+    active = torch.nonzero((n2 > n) & ~ovf & (it < max_iter)).flatten()
+    _count_sync(stats)
+    while active.numel():
+        if active.numel() == L:
+            # every lane still iterates: no gather, no write-back
+            st, sl, va, s_n, ovf = body(st, sl, va, L, okp)
+            grew, n2 = s_n > n2, s_n
+            s_ovf = ovf
+        else:
+            rows = _lane_rows(active, F)
+            s_st, s_sl, s_va, s_n, s_ovf = body(
+                take(st, rows), take(sl, rows), take(va, rows),
+                active.numel(),
+                None if okp is None else okp.index_select(0, active))
+            grew = s_n > n2.index_select(0, active)
+            st = st.index_copy(0, rows, s_st)
+            sl = sl.index_copy(0, rows, s_sl)
+            va = va.index_copy(0, rows, s_va)
+            n2 = n2.index_copy(0, active, s_n)
+            ovf = ovf.index_copy(0, active, s_ovf)
+        it += 1
+        active = active[grew & ~s_ovf
+                        & (it < max_iter.index_select(0, active))]
+        _count_sync(stats)
+    return st, sl, va, n2, ovf
+
+
+def _lane_rows(lanes: torch.Tensor, F: int) -> torch.Tensor:
+    """Frontier rows of ``lanes`` (lane-major, F each)."""
+    return (lanes[:, None] * F
+            + torch.arange(F, device=lanes.device)).flatten()
+
+
+def _lane_ok(succ, frontier, lanes, okp, max_iter, n, F, P, plan, stats,
+             order_ok=False):
+    """Closure then ok filter of ``lanes`` (host ids) whose ok is by
+    slot ``okp`` (host ids): writes their rows of ``frontier`` (states,
+    slots, valid) and ``n`` in place and returns their new statuses
+    (host). ``order_ok`` orders each dedup by the ok's slot (the
+    segmented engine's order)."""
+    states, slots, valid = frontier
+    dev = states.device
+    lt = torch.as_tensor(lanes, dtype=torch.long, device=dev)
+    rows = _lane_rows(lt, F)
+    L = len(lanes)
+    ok_t = torch.as_tensor(okp, dtype=torch.long, device=dev)
+    st, sl, va, _, ovf = _lane_closure(
+        succ, take(states, rows), take(slots, rows), take(valid, rows),
+        n.index_select(0, lt), L, F, P, plan,
+        torch.as_tensor(max_iter, dtype=torch.long, device=dev),
+        ok_t if order_ok else None, stats)
+    p_row = ok_t.repeat_interleave(F)
+    returned = va & (sl.gather(1, p_row[:, None])[:, 0] == LIN)
+    sl.scatter_(1, p_row[:, None], IDLE)
+    n3 = returned.reshape(L, F).sum(1)
+    st_new = torch.where(ovf, UNKNOWN, torch.where(n3 == 0, INVALID,
+                                                   VALID))
+    states.index_copy_(0, rows, st)
+    slots.index_copy_(0, rows, sl)
+    valid.index_copy_(0, rows, returned)
+    n.index_copy_(0, lt, n3)
+    _count_sync(stats)
+    return st_new.cpu().numpy()
+
+
+def _lane_frontier(B, F, P, dev):
+    """B lanes' initial frontiers: one empty config each."""
+    states = torch.zeros(B * F, dtype=torch.int32, device=dev)
+    slots = torch.full((B * F, P), IDLE, dtype=torch.int32, device=dev)
+    valid = (torch.arange(B * F, device=dev) % F) == 0
+    return (states, slots, valid), torch.ones(B, dtype=torch.long,
+                                              device=dev)
+
+
+def _lane_invoke(slots, lanes, p, t, F, P):
+    """Set slot ``p[i]`` of every row of lane ``lanes[i]`` to ``t[i]``."""
+    dev = slots.device
+    lt = torch.as_tensor(lanes, dtype=torch.long, device=dev)
+    s3 = slots.view(-1, F, P)
+    s3[lt, :, torch.as_tensor(p, dtype=torch.long, device=dev)] = \
+        torch.as_tensor(t, dtype=torch.int32, device=dev)[:, None]
+
+
+def check_device_batch(succ, kind, proc, tr, *, F: int, P: int,
+                       n_states=None, n_transitions=None, device=None,
+                       stats: Optional[dict] = None):
+    """The per-op engine over B histories sharing one successor table —
+    the JAX package's ``vmap`` of :func:`check_device`, as one batched
+    computation over the step streams ``(B, n_pad)``, frontier ``(B*F,
+    P)``. The lanes advance in lockstep by ok: at round r every lane
+    still VALID applies the invokes before its r-th ok (an invoke only
+    sets a slot, so where it falls among other lanes' ops changes
+    nothing), then the r-th oks' closures run side by side
+    (:func:`_lane_closure`: each lane frozen at its own fixed point,
+    overflow or P+1 bound) and filter. So every lane gets exactly its
+    per-op result, in half the rounds of a lockstep by op index.
+    Returns ``(status[B], fail_index[B], n_final[B])`` int32 tensors,
+    fail indices in history terms. ``stats`` receives
+    ``closure_iterations``, ``rows`` (frontier rows expanded) and
+    ``host_syncs``."""
+    dev = engine_device(succ, device)
+    succ = as_tensor(succ, dev)
+    kind = np.asarray(kind)
+    proc = np.asarray(proc)
+    tr = np.asarray(tr)
+    B = kind.shape[0]
+    plan = _bits_for(n_states, n_transitions, P)
+    frontier, n = _lane_frontier(B, F, P, dev)
+    status = np.full(B, VALID, np.int32)
+    fail_at = np.full(B, -1, np.int32)
+    is_ok = kind == K_OK
+    rank = np.cumsum(is_ok, axis=1) - is_ok      # oks before each op
+    n_ok = is_ok.sum(axis=1)
+    R = int(n_ok.max(initial=0))
+    ok_b, ok_t = np.nonzero(is_ok)
+    ok_at = np.zeros((B, max(R, 1)), np.int64)  # op index of each ok
+    ok_at[ok_b, rank[ok_b, ok_t]] = ok_t
+    inv_b, inv_t = np.nonzero(kind == K_INVOKE)
+    inv_r = rank[inv_b, inv_t]
+    by_r = np.argsort(inv_r, kind="stable")     # lane, then op order
+    bounds = np.searchsorted(inv_r[by_r], np.arange(R + 1))
+    for r in range(R):
+        live = (status == VALID) & (n_ok > r)
+        if not live.any():
+            break
+        sel = by_r[bounds[r]:bounds[r + 1]]
+        sel = sel[live[inv_b[sel]]]
+        if sel.size:
+            b, t = inv_b[sel], inv_t[sel]
+            p = proc[b, t]
+            # a slot set twice before one ok keeps its later invoke
+            _, last = np.unique((b * P + p)[::-1], return_index=True)
+            keep = sel.size - 1 - last
+            _lane_invoke(frontier[1], b[keep], p[keep], tr[b, t][keep], F,
+                         P)
+        oks = np.flatnonzero(live)
+        t_ok = ok_at[oks, r]
+        st = _lane_ok(succ, frontier, oks, proc[oks, t_ok],
+                      np.full(oks.size, P + 1), n, F, P, plan, stats)
+        status[oks] = st
+        fail_at[oks[st != VALID]] = t_ok[st != VALID]
+    return (torch.from_numpy(status).to(dev),
+            torch.from_numpy(fail_at).to(dev), n.to(torch.int32))
+
+
+def check_device_seg_batch(succ, inv_proc, inv_tr, ok_proc, depth, *,
+                           F: int, P: int, n_states=None,
+                           n_transitions=None, device=None,
+                           stats: Optional[dict] = None):
+    """The big-only segmented engine over B histories — the JAX
+    package's ``vmap`` of :func:`check_device_seg`, as one batched
+    computation. Segment tensors are per lane: ``(B, S, K)``
+    (``inv_proc``, ``inv_tr``), ``(B, S)`` (``ok_proc``, ``depth``);
+    each lane's closure is bounded by its own depth. Returns
+    ``(status[B], fail_segment[B], n_final[B])`` int32 tensors."""
+    dev = engine_device(succ, device)
+    succ = as_tensor(succ, dev)
+    ip = np.asarray(inv_proc)
+    it = np.asarray(inv_tr)
+    okp = np.asarray(ok_proc)
+    dp = np.asarray(depth)
+    B, S, K = ip.shape
+    plan = _bits_for(n_states, n_transitions, P)
+    frontier, n = _lane_frontier(B, F, P, dev)
+    status = np.full(B, VALID, np.int32)
+    fail_at = np.full(B, -1, np.int32)
+    for s in range(S):
+        live = np.flatnonzero((status == VALID) & (okp[:, s] >= 0))
+        if not live.size:
+            continue
+        for k in range(K):
+            m = live[ip[live, s, k] >= 0]
+            if m.size:
+                _lane_invoke(frontier[1], m, ip[m, s, k], it[m, s, k], F, P)
+        st = _lane_ok(succ, frontier, live, okp[live, s], dp[live, s], n,
+                      F, P, plan, stats, order_ok=True)
+        status[live] = st
+        fail_at[live[st != VALID]] = s
+    return (torch.from_numpy(status).to(dev),
+            torch.from_numpy(fail_at).to(dev), n.to(torch.int32))
+
+
+# --- flat engine: B histories, one explicit frontier tensor -------------------
+#
+# The B frontiers live in ONE (B*F)-row tensor with the batch id packed
+# into the top bits of a two-word sort key. Each batch contributes
+# exactly F*(P+1) rows to a dedup, valid or not, so its rows after the
+# sort are a fixed block and per-batch compaction is arithmetic on row
+# indices. The closure runs all batches in LOCKSTEP, as the JAX package
+# does: it iterates while any batch grew or overflowed, with overflow
+# sticky per batch, up to the segment's depth (the max over the batch).
+
+def flat_pack_bits(B: int, n_states: int, n_transitions: int, P: int):
+    """Bit budget including the batch id + invalid flag. Returns
+    (batch_bits, state_bits, slot_bits, fits); simulates the greedy
+    word split of :func:`_flat_sort_key`, so per-word overflow
+    (fragmentation) is caught, not just the total."""
+    batch_bits = max(int(np.ceil(np.log2(max(B, 2)))), 1)
+    state_bits = max(int(np.ceil(np.log2(max(n_states, 2)))), 1)
+    slot_bits = max(int(np.ceil(np.log2(max(n_transitions + 2, 2)))), 1)
+    widths = [batch_bits, 1, state_bits] + [slot_bits] * P
+    _, hi_bits = _greedy_split(widths)
+    fits = hi_bits <= 30 and all(b <= 30 for b in widths)
+    return batch_bits, state_bits, slot_bits, fits
+
+
+@functools.lru_cache(maxsize=64)
+def _flat_key_shifts(bits, P: int, device):
+    """Bit position of each field (batch, invalid, state, slot_0, ..)
+    in ``(hi << 31) | lo``: the greedy split of
+    :func:`flat_pack_bits`, lo filled from the end of the field list."""
+    batch_bits, state_bits, slot_bits = bits
+    widths = [batch_bits, 1, state_bits] + [slot_bits] * P
+    pos = [0] * len(widths)
+    lo_bits, i = 0, len(widths) - 1
+    while i >= 0 and lo_bits + widths[i] <= 31:
+        pos[i] = lo_bits
+        lo_bits += widths[i]
+        i -= 1
+    hi_bits = 0
+    while i >= 0:
+        pos[i] = 31 + hi_bits
+        hi_bits += widths[i]
+        i -= 1
+    return torch.tensor(pos, dtype=torch.long, device=device)
+
+
+def _flat_sort_key(batch, states, slots, valid, bits):
+    """The JAX package's two-word key batch | invalid | state | slots
+    (each word below 31 bits) as one int64, ``(hi << 31) | lo``, built
+    in one shift and one sum (fields never overlap). Invalid rows'
+    state and slot fields are zeroed BEFORE shifting: an invalid
+    candidate carries state -1, and a negative field would corrupt the
+    batch bits."""
+    fields = torch.cat([batch[:, None], (~valid)[:, None],
+                        torch.where(valid[:, None],
+                                    torch.cat([states[:, None], slots + 2],
+                                              1), 0)], 1).long()
+    return (fields << _flat_key_shifts(bits, slots.shape[1],
+                                       states.device)).sum(1)
+
+
+def _flat_dedup_compact(batch, states, slots, valid, B, F, bits):
+    """Sort all rows by (batch, validity, config) — ``jnp.lexsort((lo,
+    hi))`` as one stable sort of ``(hi << 31) | lo`` — dedup adjacent
+    equal configs, and compact each batch's survivors into its F-row
+    block. ``.at[target].set(mode="drop")`` becomes a scatter into
+    ``B*F + 1`` rows whose last (every dropped row's target) is sliced
+    off. Returns (states, slots, valid, n[B], overflow[B]), ``n``
+    capped at F."""
+    rows = states.shape[0]
+    R = rows // B
+    dev = states.device
+    ks, order = torch.sort(_flat_sort_key(batch, states, slots, valid,
+                                          bits), stable=True)
+    va = take(valid, order)
+    pad = torch.zeros(1, dtype=torch.bool, device=dev)
+    same = torch.cat([pad, (ks[1:] == ks[:-1]) & va[:-1]])
+    keep = va & ~same
+    c = torch.cumsum(keep, 0)
+    e = c - keep.long()
+    block = torch.arange(rows, device=dev) // R
+    base = e.reshape(B, R)[:, 0]
+    rank = e - base[block]
+    n_b = c.reshape(B, R)[:, -1] - base
+    target = torch.where(keep & (rank < F), block * F + rank, B * F)
+    sel = torch.zeros(B * F + 1, dtype=torch.long, device=dev)
+    sel[target] = order          # every dropped row lands on B*F
+    sel = sel[:B * F]
+    slot_row = torch.arange(B * F, device=dev)
+    n_min = torch.minimum(n_b, torch.full_like(n_b, F))
+    out_va = (slot_row % F) < n_min[slot_row // F]
+    out_st = torch.where(out_va, take(states, sel), 0)
+    out_sl = torch.where(out_va[:, None], take(slots, sel), 0)
+    return out_st, out_sl, out_va, n_min, n_b > F
+
+
+def _flat_closure(succ, batch, states, slots, valid, n_b, B, F, P, bits,
+                  max_iter=None, stats=None):
+    """Fixed point of single-call linearization over the flat frontier,
+    all batches in lockstep: the first iteration always runs; more run
+    while any batch grew or overflowed and fewer than ``max_iter``
+    ran. Overflow is sticky: a truncated frontier stays unsound for its
+    batch even if later iterations fit again."""
+    if max_iter is None:
+        max_iter = P + 1
+    dev = states.device
+    all_batch = torch.cat([batch, torch.arange(
+        B * F * P, dtype=torch.int32, device=dev) // (F * P)])
+
+    def body(st, sl, va, n, ovf_sticky):
+        c_st, c_sl, c_va = _expand(succ, st, sl, va)
+        st2, sl2, va2, n2, ovf = _flat_dedup_compact(
+            all_batch, torch.cat([st, c_st]), torch.cat([sl, c_sl]),
+            torch.cat([va, c_va]), B, F, bits)
+        if stats is not None:
+            stats["closure_iterations"] = stats.get(
+                "closure_iterations", 0) + 1
+            stats["rows"] = stats.get("rows", 0) + st.shape[0]
+        _count_sync(stats)
+        changed = bool(((n2 > n) | ovf).any())
+        return st2, sl2, va2, n2, ovf_sticky | ovf, changed
+
+    st, sl, va, n, ovf, changed = body(
+        states, slots, valid, n_b, torch.zeros(B, dtype=torch.bool,
+                                               device=dev))
+    it = 1
+    while changed and it < max_iter:
+        st, sl, va, n, ovf, changed = body(st, sl, va, n, ovf)
+        it += 1
+    return st, sl, va, n, ovf
+
+
+def check_device_flat(succ, inv_proc, inv_tr, ok_proc, depth, *, B: int,
+                      F: int, P: int, n_states: int, n_transitions: int,
+                      device=None, stats: Optional[dict] = None):
+    """Check B histories as one flat computation. Segment tensors are
+    ``(S, B, K)`` (``inv_proc``, ``inv_tr``), ``(S, B)`` (``ok_proc``)
+    and ``(S,)`` (``depth``, the max over the batch); returns
+    ``(status[B], fail_segment[B], n_final[B])`` int32 tensors.
+    Requires the packed-key budget to fit (:func:`flat_pack_bits`). A
+    segment where no history is live changes nothing and is
+    skipped."""
+    bb, sb, tb, fits = flat_pack_bits(B, n_states, n_transitions, P)
+    if not fits:
+        raise ValueError("flat engine requires the packed-key budget to "
+                         "fit")
+    bits = (bb, sb, tb)
+    dev = engine_device(succ, device)
+    succ = as_tensor(succ, dev)
+    ip_all = as_tensor(inv_proc, dev, torch.long)
+    it_all = as_tensor(inv_tr, dev)
+    okp_all = as_tensor(ok_proc, dev, torch.long)
+    okp_host = np.asarray(ok_proc)
+    depths = np.asarray(depth).tolist()
+    S, _, K = ip_all.shape
+    rows = B * F
+    batch = torch.arange(rows, dtype=torch.int32, device=dev) // F
+    bl = batch.long()
+    states = torch.zeros(rows, dtype=torch.int32, device=dev)
+    slots = torch.full((rows, P), IDLE, dtype=torch.int32, device=dev)
+    valid = (torch.arange(rows, device=dev) % F) == 0
+    n_b = torch.ones(B, dtype=torch.long, device=dev)
+    status = torch.full((B,), VALID, dtype=torch.int32, device=dev)
+    fail_at = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    status_host = np.full(B, VALID, np.int32)
+    for s in range(S):
+        if not ((status_host == VALID) & (okp_host[s] >= 0)).any():
+            continue
+        live_b = (status == VALID) & (okp_all[s] >= 0)
+        live_row = live_b[bl]
+        sl = slots
+        for k in range(K):
+            p_row = ip_all[s][bl, k]
+            set_mask = live_row & (p_row >= 0)
+            col = p_row.clamp(min=0)[:, None]
+            cur = sl.gather(1, col)[:, 0]
+            sl = sl.scatter(1, col, torch.where(
+                set_mask, it_all[s][bl, k], cur)[:, None])
+        st2, sl2, va2, n2, ovf = _flat_closure(
+            succ, batch, states, sl, valid, n_b, B, F, P, bits,
+            max_iter=depths[s], stats=stats)
+        okp_row = okp_all[s].clamp(min=0)[bl][:, None]
+        returned = va2 & (sl2.gather(1, okp_row)[:, 0] == LIN)
+        sl3 = sl2.scatter(1, okp_row, torch.where(
+            returned, IDLE, sl2.gather(1, okp_row)[:, 0])[:, None])
+        n3 = returned.reshape(B, F).sum(1)
+        st_new = torch.where(ovf, UNKNOWN, torch.where(
+            n3 == 0, INVALID, VALID)).to(torch.int32)
+        status2 = torch.where(live_b, st_new, status)
+        fail_at = torch.where(live_b & (st_new != VALID), s, fail_at)
+        keep_row = live_row & (status2[bl] == VALID)
+        states = torch.where(keep_row, st2, states)
+        slots = torch.where(keep_row[:, None], sl3, slots)
+        valid = torch.where(keep_row, returned, valid)
+        n_b = torch.where(live_b & (status2 == VALID), n3, n_b)
+        status = status2
+        status_host = status.cpu().numpy()
+        _count_sync(stats)
+    return status, fail_at, n_b.to(torch.int32)
 
 
 # --- keys: B histories, (hi, lo) key-pair frontier ----------------------------

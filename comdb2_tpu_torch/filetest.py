@@ -10,9 +10,17 @@ the frontier search; ``wgl``, the host world search), set semantics
 workload family (``bank`` / ``sets`` / ``dirty``). The device checks
 run on ``cuda`` unless ``--device cpu`` is given.
 
-Not ported yet: ``--service``, ``--shrink``, ``--trace`` and
-``--follow``; they wait for the serving, shrink, tracing and streaming
-slices.
+Histories parse through the native EDN loader
+(:func:`.ops.native_loader.parse_history_fast`), or the Python reader
+when ``native/build`` is not built. ``--trace PATH`` writes a Chrome
+trace-event JSON of the run: the ``filetest.parse`` span (its ``parser``
+arg names the reader), the checker's own spans (for ``linear``:
+``linear.pack``, ``linear.device`` with ``linear.segments``,
+``linear.kernel`` and ``linear.decode`` inside it) and
+``filetest.finalize`` (the verdict map and its printing).
+
+Not ported yet: ``--service``, ``--shrink``, ``--store`` and
+``--follow``; they wait for the serving, shrink and streaming slices.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from .checker import analysis
 from .checker.checkers import set_checker
 from .models.model import MODELS
 from .obs import trace as obs_trace
-from .ops.history import parse_history
+from .ops.native_loader import parse_history_fast
 
 #: the workload families (``checker.wl.FAMILIES``)
 _WL_FAMILIES = ("bank", "sets", "dirty")
@@ -65,6 +73,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--keyed", action="store_true",
                    help="re-tag [k v] op values as keyed tuples "
                         "(independent-generator histories)")
+    p.add_argument("--trace", metavar="PATH",
+                   help="write a Chrome/Perfetto trace-event JSON of "
+                        "this run (parse / pack / device / finalize "
+                        "stage spans)")
     args = p.parse_args(argv)
     if args.txn:
         args.checker = "txn"
@@ -72,9 +84,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                                    or args.wl_total is None):
         p.error("--checker bank needs --wl-n and --wl-total")
 
-    with obs_trace.span("filetest.parse", path=args.history):
+    if args.trace:
+        obs_trace.enable()
+    try:
+        return _run(args)
+    finally:
+        if args.trace:
+            obs_trace.export_chrome(args.trace)
+            print(f"trace: {len(obs_trace.spans())} span(s) -> "
+                  f"{args.trace}", file=sys.stderr)
+            # leave the process as found (embedders run main() too)
+            obs_trace.disable()
+            obs_trace.clear()
+
+
+def _run(args) -> int:
+    """The checker run proper (``main`` owns argument parsing and the
+    trace export, which happens on every exit path)."""
+    with obs_trace.span("filetest.parse", path=args.history) as sp:
         with open(args.history) as fh:
-            history = parse_history(fh.read())
+            parsed: dict = {}
+            history = parse_history_fast(fh.read(), info=parsed)
+        sp.set(parser=parsed["parser"], ops=len(history))
 
     if (args.keyed or args.model == "cas-register-comdb2") \
             and args.checker != "txn" \
@@ -100,38 +131,35 @@ def main(argv: Optional[List[str]] = None) -> int:
 
             result = check_wl_batch([history], args.checker, model,
                                     device=args.device)[0]
-        pprint.pprint(result)
-        valid = result.get("valid?")
     elif args.checker == "txn":
         from .txn import check_txn
 
         result = check_txn(history, backend=args.backend,
                            realtime=args.realtime, device=args.device)
-        cex = result.get("counterexample")
-        if cex:
-            from .txn.counterexample import render_text
-
-            print(render_text(cex))
-        pprint.pprint({k: v for k, v in result.items()
-                       if k != "counterexample"})
-        valid = result.get("valid?")
     elif args.checker == "set":
         result = set_checker.check({}, None, history)
-        pprint.pprint(result)
-        valid = result.get("valid?")
     elif args.checker == "wgl":
         from .checker import wgl
 
         result = wgl.analysis(MODELS[args.model](), history)
+    else:
+        result = analysis(MODELS[args.model](), history,
+                          backend=args.backend, device=args.device)
+
+    with obs_trace.span("filetest.finalize", checker=args.checker):
+        if args.checker == "txn":
+            cex = result.get("counterexample")
+            if cex:
+                from .txn.counterexample import render_text
+
+                print(render_text(cex))
+            result = {k: v for k, v in result.items()
+                      if k != "counterexample"}
+        elif args.checker == "linear":
+            result = result.to_map()
+            result.pop("configs", None)
         pprint.pprint(result)
         valid = result.get("valid?")
-    else:
-        a = analysis(MODELS[args.model](), history, backend=args.backend,
-                     device=args.device)
-        result = a.to_map()
-        result.pop("configs", None)
-        pprint.pprint(result)
-        valid = a.valid
 
     if valid is True:
         return 0

@@ -20,7 +20,7 @@ from .op import (
     is_fail,
     is_info,
 )
-from .history import complete, index
+from .history import complete, index, pairs, pair_index, processes
 from .edn import read_edn, read_edn_all, write_edn, Keyword, kw
 from .packed import PackedHistory, pack_history
 
@@ -28,7 +28,7 @@ __all__ = [
     "Op", "INVOKE", "OK", "FAIL", "INFO", "TYPE_NAMES",
     "invoke", "ok", "fail", "info",
     "is_invoke", "is_ok", "is_fail", "is_info",
-    "complete", "index",
+    "complete", "index", "pairs", "pair_index", "processes",
     "read_edn", "read_edn_all", "write_edn", "Keyword", "kw",
     "PackedHistory", "pack_history",
 ]

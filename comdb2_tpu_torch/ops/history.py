@@ -2,6 +2,8 @@
 
 Reimplements the semantics of the reference's ``knossos/history.clj``:
 
+- :func:`pairs` / :func:`pair_index` — match invocations with their
+  completions (``history.clj:36-67``).
 - :func:`complete` — back-fill an invocation's ``value`` from its ``ok``
   completion, and mark invocations whose completion is a ``fail`` with
   ``fails=True`` so checkers can skip them (``history.clj:87-171``). This
@@ -14,10 +16,57 @@ Also hosts conversion between EDN keyword-maps (the interchange format of
 
 from __future__ import annotations
 
-from typing import Any, Dict, Hashable, List
+from typing import Any, Dict, Hashable, Iterable, List, Optional, Tuple
 
 from .op import Op
 from .edn import Keyword, kw, write_edn
+
+
+def processes(history: Iterable[Op]) -> set:
+    """The set of processes appearing in a history."""
+    return {op.process for op in history}
+
+
+def pairs(history: Iterable[Op]) -> List[Tuple[Op, Optional[Op]]]:
+    """Pair invocations with completions, in completion order. Yields
+    ``(invoke, ok|fail)`` tuples and ``(info, None)`` singletons.
+    Asserts the single-threaded process discipline the reference enforces
+    (``history.clj:44-51``)."""
+    inflight: Dict[Hashable, Op] = {}
+    out: List[Tuple[Op, Optional[Op]]] = []
+    for op in history:
+        if op.type == "info":
+            out.append((op, None))
+        elif op.type == "invoke":
+            if op.process in inflight:
+                raise RuntimeError(
+                    f"process {op.process!r} invoked concurrently with itself")
+            inflight[op.process] = op
+        else:  # ok | fail
+            if op.process not in inflight:
+                raise RuntimeError(f"completion without invocation: {op}")
+            out.append((inflight.pop(op.process), op))
+    return out
+
+
+def pair_index(history: List[Op]) -> Dict[int, Optional[int]]:
+    """Map each op's index to its counterpart's index (invocation ↔
+    completion). Infos map to None. Requires an indexed history."""
+    inflight: Dict[Hashable, Op] = {}
+    out: Dict[int, Optional[int]] = {}
+    for op in history:
+        if op.type == "invoke":
+            inflight[op.process] = op
+            out[op.index] = None  # provisional; overwritten on completion
+        elif op.type in ("ok", "fail"):
+            inv = inflight.pop(op.process, None)
+            if inv is None:
+                raise RuntimeError(f"completion without invocation: {op}")
+            out[inv.index] = op.index
+            out[op.index] = inv.index
+        else:
+            out[op.index] = None
+    return out
 
 
 def complete(history: List[Op], index: bool = False) -> List[Op]:

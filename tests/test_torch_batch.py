@@ -322,12 +322,119 @@ def test_pad_floors_shape_the_host_arrays_alike(n_pad, s_pad, k_pad):
         assert a.dtype == b.dtype and np.array_equal(a, b), f
 
 
-def test_unported_routes_raise(batches):
-    _, tb = batches
-    for kw in (dict(engine="flat"), dict(engine="vmap"),
-               dict(mesh=object())):
+def _assert_lanes_equal(got, want):
+    """Status and fail index bit-equal; n_final equal on VALID lanes."""
+    assert got[0].tolist() == want[0].tolist()
+    assert got[1].tolist() == want[1].tolist()
+    valid = want[0] == LT.VALID
+    assert got[2][valid].tolist() == want[2][valid].tolist()
+
+
+@pytest.mark.parametrize("route", ["flat", "vmap", "mesh"])
+def test_unported_routes_raise(batches, route):
+    """Only ``mesh=`` still raises (the mesh routes are not ported).
+    ``engine="flat"`` and ``engine="vmap"``, which raised until their
+    engines were ported, give the JAX package's verdicts at the same F
+    on the mixed batch (the malformed lane unknown)."""
+    jb, tb = batches
+    if route == "mesh":
         with pytest.raises(EngineNotPorted):
-            TB.check_batch(tb, device="cpu", **kw)
+            TB.check_batch(tb, device="cpu", mesh=object())
+        return
+    info, jinfo = {}, {}
+    got = TB.check_batch(tb, F=512, engine=route, info=info, device="cpu")
+    want = JB.check_batch(jb, F=512, engine=route, info=jinfo)
+    _assert_lanes_equal(got, want)
+    assert info["engine"] == jinfo["engine"] == route
+    assert info["engine_stats"]["closure_iterations"] > 0
+    assert got[0][-1] == LT.UNKNOWN
+
+
+def _vmap_only_histories():
+    """Eight-process lanes over 20 values: the union table has 77
+    transitions, so neither the 62-bit key layout nor the flat budget
+    fits at P = 8 and the MXU engine does not serve P < 16 — only vmap
+    does. Every third lane is mutated; lane 1 has up to 8 calls in
+    flight and overflows the kernel's 128 configs."""
+    rng = random.Random(11)
+    hs = []
+    for i in range(8):
+        h = JS.register_history(rng, n_procs=8, n_events=250, values=20,
+                                p_info=0.0, max_pending=3)
+        hs.append(JS.mutate(rng, h, values=20) if i % 3 == 1 else h)
+    hs.insert(1, JS.register_history(random.Random(2), n_procs=8,
+                                     n_events=250, values=20, p_info=0.0,
+                                     max_pending=8))
+    return hs
+
+
+@pytest.fixture(scope="module")
+def vmap_only():
+    hs = _vmap_only_histories()
+    jb = JB.pack_batch(hs, JM.cas_register())
+    tb = TB.pack_batch(hs, TM.cas_register())
+    jinfo = {}
+    want = JB.check_batch(jb, F=512, engine="auto", info=jinfo)
+    return hs, jb, tb, want, jinfo
+
+
+def test_vmap_only_shape_is_vmap_only(vmap_only):
+    _, jb, tb, _, jinfo = vmap_only
+    m = tb.memo
+    assert (m.n_states, m.n_transitions) == (jb.memo.n_states,
+                                             jb.memo.n_transitions)
+    assert TB.pick_engine(len(tb), m.n_states, m.n_transitions, 8) == "vmap"
+    # on CPU the JAX package has no fused kernel: its auto takes vmap
+    assert jinfo["engine"] == "vmap"
+
+
+@pytest.mark.parametrize("engine", ["vmap", "auto"])
+def test_vmap_only_shape_matches_the_reference(vmap_only, engine):
+    """``auto`` runs the stream kernel (its plain version here) and
+    escalates the lane that overflowed 128 configs through vmap at F;
+    ``vmap`` runs every lane through it. Both give the JAX package's
+    verdicts."""
+    _, _, tb, want, _ = vmap_only
+    info = {}
+    got = TB.check_batch(tb, F=512, engine=engine, info=info, device="cpu")
+    _assert_lanes_equal(got, want)
+    if engine == "auto":
+        assert info["engine"] == "stream"
+        assert info["escalated"]["engine"] == "vmap"
+        assert info["escalated"]["count"] == 1
+        assert info["escalated"]["engine_stats"]["host_syncs"] > 0
+    else:
+        assert info["engine"] == "vmap"
+    assert {LT.VALID, LT.INVALID} <= set(got[0].tolist())
+
+
+def test_vmap_only_shape_refuses_flat(vmap_only):
+    _, _, tb, _, _ = vmap_only
+    with pytest.raises(ValueError, match="budget"):
+        TB.check_batch(tb, F=512, engine="flat", device="cpu")
+
+
+def test_vmap_needs_the_step_streams(vmap_only):
+    hs = vmap_only[0]
+    tb = TB.pack_batch(hs, TM.cas_register(), build_streams=False)
+    with pytest.raises(ValueError, match="build_streams"):
+        TB.check_batch(tb, F=512, engine="vmap", device="cpu")
+
+
+def test_escalation_without_step_streams_stays_unknown(vmap_only):
+    """Packed without the dense step streams, a kernel overflow that
+    only vmap could take stays unknown, and ``info`` says the
+    escalation was asked for and impossible (the JAX package's
+    contract)."""
+    hs, _, _, want, _ = vmap_only
+    tb = TB.pack_batch(hs, TM.cas_register(), build_streams=False)
+    info = {}
+    st, fa, _ = TB.check_batch(tb, F=512, info=info, device="cpu")
+    assert info["escalated"] == {"engine": None, "count": 1}
+    assert st[1] == LT.UNKNOWN
+    others = [i for i in range(len(hs)) if i != 1]
+    assert st[others].tolist() == want[0][others].tolist()
+    assert fa[others].tolist() == want[1][others].tolist()
 
 
 @pytest.mark.parametrize("fn", [TB.check_batch, TB.check_batch_async])

@@ -383,6 +383,79 @@ def test_check_batch_on_the_card_matches_cpu(cuda):
         assert a.tolist() == b.tolist()
 
 
+def _j_batch(n_lanes, n_events, n_overflow):
+    """Request (j) of ``chip_smoke.py`` at a small size: eight-process
+    lanes over 8 values (about 77 transitions at 2000 events), the
+    first ``n_overflow`` with 8 calls in flight, the rest with 4."""
+    hs = [register_history(random.Random(900 + i), n_procs=8,
+                           n_events=n_events, values=8, p_info=0.0,
+                           max_pending=8 if i < n_overflow else 4)
+          for i in range(n_lanes)]
+    return hs, TB.pack_batch(hs, cas_register())
+
+
+def test_vmap_escalation_on_the_card_matches_cpu(cuda):
+    """(j), small: the stream kernel, then its overflowed lanes through
+    the vmap engine at F; the card's verdicts equal the CPU tensors'."""
+    hs, tb = _j_batch(16, 600, 2)
+    m = tb.memo
+    if TB.pick_engine(2, m.n_states, m.n_transitions, 8) != "vmap":
+        pytest.skip(f"table {m.n_states}x{m.n_transitions} fits keys")
+    info: dict = {}
+    got = TB.check_batch(tb, F=2048, device="cuda", info=info)
+    assert info["engine"] == "stream"
+    assert info["escalated"]["engine"] == "vmap"
+    want = TB.check_batch(tb, F=2048, device="cpu")
+    for a, b in zip(got[:2], want[:2]):
+        assert a.tolist() == b.tolist()
+    valid = want[0] == LT.VALID
+    assert got[2][valid].tolist() == want[2][valid].tolist()
+    for i, h in enumerate(hs):
+        r = analysis(cas_register(), h, device="cuda")
+        st = {True: LT.VALID, False: LT.INVALID}.get(r.valid, LT.UNKNOWN)
+        if st != LT.UNKNOWN:
+            assert int(got[0][i]) == st, i
+
+
+@pytest.mark.parametrize("engine", ["flat", "vmap"])
+def test_flat_and_vmap_on_the_card_match_keys(cuda, engine):
+    """(j2), small: the mixed batch through flat and vmap on the card
+    equals the keys engine in status and fail index, and in n_final on
+    VALID lanes."""
+    tb = _mixed_batch()
+    want = TB.check_batch(tb, F=1024, engine="keys", device="cuda")
+    info: dict = {}
+    got = TB.check_batch(tb, F=1024, engine=engine, device="cuda",
+                         info=info)
+    assert info["engine"] == engine
+    for a, b in zip(got[:2], want[:2]):
+        assert a.tolist() == b.tolist()
+    valid = want[0] == LT.VALID
+    assert got[2][valid].tolist() == want[2][valid].tolist()
+
+
+def test_no_nvcc_and_no_library_raise_on_the_card(cuda, monkeypatch,
+                                                   tmp_path):
+    """A card whose host cannot build the kernels (no ``nvcc``, nothing
+    built): ``analysis`` and ``check_batch`` on the card raise the
+    build's error; nothing falls back to another engine."""
+    from comdb2_tpu_torch.kernels import build
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    h = register_history(random.Random(1), n_procs=5, n_events=400,
+                         values=5, p_info=0.0)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        analysis(cas_register(), h, device="cuda", backend="device")
+    tb = TB.pack_batch([h, h], cas_register())
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        TB.check_batch(tb, F=256, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        TB.check_batch(tb, F=256, engine="keys", device="cuda")
+
+
 def test_seg2_and_keys_on_the_card_match_cpu(cuda):
     h = register_history(random.Random(0), n_procs=8, n_events=400,
                          values=5, p_info=0.0, max_pending=8)

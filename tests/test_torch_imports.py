@@ -41,7 +41,8 @@ def test_package_has_the_slice_modules():
               "checker.wl.bank", "checker.wl.sets", "checker.wl.dirty",
               "checker.wl.batch", "checker.wl.synth", "txn.edges",
               "txn.scc", "txn.closure_torch", "txn.counterexample",
-              "txn.check", "txn.adapters"):
+              "txn.check", "txn.adapters", "checker.brute",
+              "ops.native_loader"):
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -136,3 +137,30 @@ def test_chip_smoke_alone_fails(tmp_path):
                             if k != "PYTHONPATH"})
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("engine", ["check_device", "check_device_batch",
+                                    "check_device_seg_batch",
+                                    "check_device_flat"])
+def test_new_engines_without_device_raise_when_cuda_is_absent(engine):
+    """The engines run on ``cuda`` unless asked for the CPU: given host
+    arrays and no device on a host without CUDA they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is usable")
+    import numpy as np
+
+    from comdb2_tpu_torch.checker import linear_torch as LT
+
+    succ = np.zeros((2, 2), np.int32)
+    one = np.zeros((1, 1), np.int32)
+    args = {"check_device": (succ, one[0], one[0], one[0]),
+            "check_device_batch": (succ, one, one, one),
+            "check_device_seg_batch": (succ, one[None], one[None], one,
+                                       one),
+            "check_device_flat": (succ, one[None], one[None], one,
+                                  one[0])}[engine]
+    kw = dict(F=8, P=2)
+    if engine == "check_device_flat":
+        kw.update(B=1, n_states=2, n_transitions=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(LT, engine)(*args, **kw)
