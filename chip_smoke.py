@@ -8,9 +8,9 @@ Run from the root of a checkout on a host with one CUDA card:
 It builds every kernel from the sources in the checkout (one ``nvcc``
 per source, all at once), drives the port's main paths through their
 public entry points (``checker.analysis``, ``filetest``,
-``checker.batch.check_batch`` with every engine, and the checker
-layer's ``txn.check_txn``, ``checker.wl.check_wl_batch`` and
-``IndependentChecker``) at full size, holds every kernel against
+``checker.batch.check_batch`` with every engine, the checker layer's
+``txn.check_txn``, ``checker.wl.check_wl_batch`` and
+``IndependentChecker``, and ``shrink.minimize``) at full size, holds every kernel against
 its plain PyTorch version on the same card tensors, and times both. It
 imports nothing of JAX and nothing of the JAX package, and falls back
 to nothing: any failure exits non-zero before the result line.
@@ -108,6 +108,40 @@ The last batch engines, counted as a fourth path:
   once per iteration). The widest rows that keys sorted here are held
   bit-equal against ``pair_sort_reference``.
 
+Counterexample shrink, counted as a fifth path:
+
+- (s10) ``scripts/bench_shrink.py``'s register seeds at 10k events (a
+  3-process write-only history, read-only for lost-update, with
+  ``inject_anomaly``'s stale-read or lost-update planted at its end;
+  the generators copied here as ``register_seed`` and ``make_ring``):
+  ``shrink.minimize(checker="linear", F=1024, engine="auto")`` on the
+  card, one ``seg_search[stream]`` launch per ddmin round; the minimal
+  ops must be the injected truth, ``one_minimal`` true, the
+  1-minimality certificate re-derived on the host with ``linear_host``,
+  ``render_minimal`` INVALID, and rounds / candidates / dispatches
+  those recorded (``RECORDED_SHRINK``). After the counts, the first
+  ddmin round's launch is held bit-equal against the plain stream
+  version;
+- (s) the same at 100k events, with the wall, the stream launches, the
+  card time summed over them (CUDA events) and the host split of every
+  round (the port's trace spans: ``shrink.pack``, ``batch.remap``,
+  ``batch.dispatch``, ``batch.finalize``);
+- (st) ``minimize(checker="txn")`` on (t2)'s 2400-txn base with a
+  write-skew ring (``-T``) and a dirty-commit ring (``-R``) appended:
+  the seed closure at the 4096 bucket, then ``closure_diag_batch`` per
+  round; every field equal to ``RECORDED_TXN``, the closure's card time
+  per round;
+- (sf) ``filetest --shrink --store`` on the shrink and txn fixtures:
+  exit 1, ``minimal.edn`` / ``results.edn`` / ``shrink.svg`` written,
+  certified, re-checked INVALID, and ``filetest`` on ``minimal.edn``
+  exits 1; on ``clean.edn`` exit 0 and the seed rejected;
+- (sa) the checker objects' store artifacts: ``Linearizable`` on (b)
+  (``linear.svg``), ``Serializable`` on (t2)'s G1c history
+  (``serializable.txt`` / ``.svg``), ``IndependentChecker`` on (i)'s
+  256 keys (every key's ``results.edn`` and ``history.edn``, and
+  ``linear.svg`` for the INVALID keys); each ``results.edn`` reads back
+  equal to the returned map.
+
 In the single-history path, (e3) is (e) again with ``filetest --trace``:
 the span totals per stage (parse, pack, device with segments / kernel /
 decode inside, finalize) and the parser that ran — the C++ loader when
@@ -184,6 +218,23 @@ TXN_COUNT = 2400       # (t2): past check_txn's DEVICE_THRESHOLD
 WL_LANES = 512         # (w): the top WL_BATCH rung
 KEYS, KEY_EVENTS = 256, 2000                                 # (i)
 J_LANES, J_EVENTS, J_OVERFLOW, J_F = 512, 2000, 8, 8192     # (j), (j2)
+S10_EVENTS, S_EVENTS, SHRINK_F = 10_000, 100_000, 1024      # (s10), (s)
+# (s10): (rounds, candidates, dispatches) of the JAX package's
+# minimize(checker="linear", F=1024, engine="auto") on CPU, where its
+# auto engine is keys at F = 1024 (the port's stream kernel at 128,
+# escalating to keys at 1024, has the same capacity); (s): the first
+# card run of this script's fifth path, which the JAX package on CPU
+# matched afterwards (in 964 and 669 s)
+RECORDED_SHRINK = {("s10", "stale-read"): (15, 28, 14),
+                   ("s10", "lost-update"): (15, 29, 15),
+                   ("s", "stale-read"): (18, 34, 17),
+                   ("s", "lost-update"): (18, 35, 18)}
+# (st): the JAX package's minimize(checker="txn") on CPU, for -T and -R
+# alike: the ring's 8 txns (node ids after the 2400-txn base) and the
+# audit read as evidence; the ops are the 18 of make_ring, in order
+RECORDED_TXN = {"txns": list(range(2400, 2408)), "evidence_txns": [2408],
+                "anomaly_class": "G2-item", "seed_class": "G2-item",
+                "rounds": 5, "candidates": 34, "dispatches": 5}
 # what earlier runs of this script recorded on the card (PERF.md): per
 # request (valid, op_index, engine, frontier capacity), None where not
 # pinned; statuses per batch
@@ -978,6 +1029,29 @@ def _wl_requests(dev, rec):
                       f"written once); {kernels} CUDA kernels per call")
 
 
+def _i_histories():
+    """(i)'s keys: ``(per, keyed)``, each key's 5-process register
+    history of KEY_EVENTS events (every 32nd mutated) and the keyed
+    history, round-robin over the keys; key k's subhistory is per[k]."""
+    from comdb2_tpu_torch.ops import op as O
+    from comdb2_tpu_torch.ops.kv import tuple_
+    from comdb2_tpu_torch.ops.synth import mutate, register_history
+
+    per = []
+    for k in range(KEYS):
+        rng = random.Random(30_000 + k)
+        h = register_history(rng, n_procs=5, n_events=KEY_EVENTS,
+                             values=5, p_info=0.0)
+        if k % 32 == 7:
+            h = mutate(rng, h, values=5)
+        per.append([O.Op(op.process + 5 * k, op.type, op.f, op.value)
+                    for op in h])
+    keyed = [op.with_(value=tuple_(k, op.value))
+             for i in range(max(map(len, per)))
+             for k, h in enumerate(per) if i < len(h) for op in (h[i],)]
+    return per, keyed
+
+
 def _independent_request(dev, rec):
     """(i): ``IndependentChecker(Linearizable())`` over 256 keys, each a
     5-process register history of 2000 events, every 32nd mutated: one
@@ -990,24 +1064,9 @@ def _independent_request(dev, rec):
     from comdb2_tpu_torch.checker.checkers import Linearizable
     from comdb2_tpu_torch.checker.independent import IndependentChecker
     from comdb2_tpu_torch.models.model import cas_register
-    from comdb2_tpu_torch.ops import op as O
-    from comdb2_tpu_torch.ops.kv import tuple_
-    from comdb2_tpu_torch.ops.synth import mutate, register_history
 
     t0 = time.perf_counter()
-    per = []
-    for k in range(KEYS):
-        rng = random.Random(30_000 + k)
-        h = register_history(rng, n_procs=5, n_events=KEY_EVENTS,
-                             values=5, p_info=0.0)
-        if k % 32 == 7:
-            h = mutate(rng, h, values=5)
-        per.append([O.Op(op.process + 5 * k, op.type, op.f, op.value)
-                    for op in h])
-    # round-robin over the keys; key k's subhistory is per[k]
-    keyed = [op.with_(value=tuple_(k, op.value))
-             for i in range(max(map(len, per)))
-             for k, h in enumerate(per) if i < len(h) for op in (h[i],)]
+    per, keyed = _i_histories()
     t_gen = time.perf_counter() - t0
     s0 = SK.STREAM_LAUNCHES
     torch.cuda.synchronize()
@@ -1457,6 +1516,461 @@ def _escalation_comparisons(dev, rec, hs_j, batch_j, info_j, res_j,
             prof, P5, pre_stats.get("closure_iterations")))
 
 
+def make_ring(k: int, dirty: bool, dp: int = 500, dk: int = 500):
+    """A write-skew rw ring of ``k`` sequential txns (t_i reads key_i
+    empty, appends to key_{i+1}) and an audit read of every key, on
+    processes and keys from ``dp`` / ``dk`` (copied from
+    ``scripts/bench_shrink.py``). With ``dirty``, one ring txn FAILS but
+    its append is observed by the audit read: the ``-R`` dirty-commit
+    signature (G1a and a cycle through the dirty txn); without, the
+    ``-T`` write-skew signature."""
+    from comdb2_tpu_torch.ops import op as O
+
+    h = []
+    for i in range(k):
+        mops = (("r", dk + i, None), ("append", dk + (i + 1) % k, 1))
+        done = (("r", dk + i, ()), ("append", dk + (i + 1) % k, 1))
+        typ = "fail" if dirty and i == 0 else "ok"
+        h.append(O.invoke(dp + i, "txn", mops))
+        h.append(O.Op(dp + i, typ, "txn", done))
+    audit = tuple(("r", dk + i, (1,)) for i in range(k))
+    h.append(O.invoke(dp + k, "txn",
+                      tuple(("r", dk + i, None) for i in range(k))))
+    h.append(O.Op(dp + k, "ok", "txn", audit))
+    return h
+
+
+def register_seed(n_events: int, kind: str):
+    """``scripts/bench_shrink.py``'s register seed: a 3-process register
+    history, write-only (read-only for lost-update), with one known
+    minimal anomaly planted at its end. Returns ``(history, truth)``."""
+    from comdb2_tpu_torch.ops.synth import inject_anomaly, register_history
+
+    fs = ("read",) if kind == "lost-update" else ("write",)
+    base = register_history(random.Random(7), n_procs=3, n_events=n_events,
+                            fs=fs, p_info=0.0, max_pending=2)
+    return inject_anomaly(base, kind)
+
+
+def _sig(op):
+    return (op.process, op.type, op.f, op.value)
+
+
+class _CardTimer:
+    """CUDA events around every call of ``mod.name`` (a function that
+    queues work on the card) while the context is open; ``calls`` holds
+    ``(host start, start event, end event)``."""
+
+    def __init__(self, mod, name):
+        self.mod, self.name = mod, name
+        self.real = getattr(mod, name)
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            t = time.monotonic()
+            e0.record()
+            out = self.real(*a, **kw)
+            e1.record()
+            self.calls.append((t, e0, e1))
+            return out
+
+        setattr(self.mod, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.real)
+        return False
+
+    def ms(self):
+        """``[(host start, card ms)]`` per call."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [(t, e0.elapsed_time(e1)) for t, e0, e1 in self.calls]
+
+
+def _rounds_split(spans, card):
+    """Per ``shrink.step`` span (one round), its phase, wall and the
+    seconds of its child spans by stage, plus the card milliseconds of
+    the timed calls that started inside it (``card``: ``[(host start,
+    ms)]``, on the trace's monotonic clock)."""
+    steps = [s for s in spans if s.name == "shrink.step"]
+    stage = {"shrink.pack": "pack", "batch.remap": "segments",
+             "batch.dispatch": "dispatch", "batch.finalize": "finalize"}
+    out = []
+    for st in steps:
+        row = {"phase": st.args.get("phase"), "wall_ms":
+               (st.t1 - st.t0) * 1e3, "card_ms": sum(
+                   ms for t, ms in card if st.t0 <= t <= st.t1)}
+        for k in stage.values():
+            row[k + "_ms"] = 0.0
+        out.append((st, row))
+    for s in spans:
+        if s.name not in stage:
+            continue
+        p = s.parent
+        while p is not None and p.name != "shrink.step":
+            p = p.parent
+        for st, row in out:
+            if st is p:
+                row[stage[s.name] + "_ms"] += (s.t1 - s.t0) * 1e3
+    return [row for _, row in out]
+
+
+def _certified(ops) -> bool:
+    """The 1-minimality certificate re-derived on the host: ``ops`` is
+    INVALID under ``linear_host`` and removing any single atom leaves it
+    not INVALID."""
+    from comdb2_tpu_torch.checker import linear_host
+    from comdb2_tpu_torch.models.memo import memo
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.columnar import subset_packed
+    from comdb2_tpu_torch.ops.packed import pack_history
+    from comdb2_tpu_torch.shrink import atoms_of
+
+    def host_valid(h):
+        p = pack_history(list(h))
+        return linear_host.check(memo(cas_register(), p), p).valid
+
+    p = pack_history([op.with_() for op in ops])
+    atoms, pinned = atoms_of(p)
+    if host_valid(p.ops) is not False or not atoms:
+        return False
+    for k in range(len(atoms)):
+        keep = pinned.copy()
+        for j, a in enumerate(atoms):
+            if j != k:
+                keep[a] = True
+        if host_valid(subset_packed(p, keep).ops) is False:
+            return False
+    return True
+
+
+def _traced_run(fn, timers):
+    """Run ``fn`` with the port's trace on and ``timers`` open; returns
+    ``(result, wall s, spans, [(host start, card ms)])``."""
+    import contextlib
+
+    import torch
+
+    from comdb2_tpu_torch.obs import trace as obs_trace
+
+    obs_trace.clear()
+    obs_trace.enable()
+    try:
+        with contextlib.ExitStack() as stack:
+            for t in timers:
+                stack.enter_context(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        spans = obs_trace.spans()
+    finally:
+        obs_trace.disable()
+        obs_trace.clear()
+    return out, wall, spans, [c for t in timers for c in t.ms()]
+
+
+def _shrink_linear(dev, rec, label, n_events):
+    """(s10) / (s): ``minimize(checker="linear", F=SHRINK_F,
+    engine="auto")`` on the card on ``register_seed``'s stale-read and
+    lost-update shapes: the injected truth recovered, ``one_minimal``,
+    the certificate re-derived on the host, ``render_minimal`` INVALID,
+    and rounds / candidates / dispatches equal to ``RECORDED_SHRINK``.
+    Prints the wall, the stream launches, their card
+    time and the host split per round."""
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.report.shrink_svg import render_minimal
+    from comdb2_tpu_torch.shrink import minimize
+
+    rec[label] = {}
+    for kind in ("stale-read", "lost-update"):
+        t0 = time.perf_counter()
+        h, truth = register_seed(n_events, kind)
+        t_gen = time.perf_counter() - t0
+        s0 = SK.STREAM_LAUNCHES
+        r, wall, spans, card = _traced_run(
+            lambda: minimize(h, checker="linear", model="cas-register",
+                             F=SHRINK_F, engine="auto", device=dev),
+            [_CardTimer(SK, "seg_search_stream")])
+        launches = SK.STREAM_LAUNCHES - s0
+        rounds = _rounds_split(spans, card)
+        t0 = time.perf_counter()
+        cert = _certified(r.ops)
+        rv, svg = render_minimal(r.ops)
+        t_check = time.perf_counter() - t0
+        got = (r.rounds, r.candidates, r.dispatches)
+        want = RECORDED_SHRINK[(label, kind)]
+        row = {"seed_ops": r.seed_ops, "n_ops": r.n_ops, "rounds": r.rounds,
+               "candidates": r.candidates, "dispatches": r.dispatches,
+               "one_minimal": r.one_minimal, "stream_launches": launches,
+               "card_ms": sum(ms for _, ms in card), "wall_s": wall,
+               "generate_s": t_gen, "certified_on_host": cert,
+               "render_minimal_valid": rv, "recorded": want,
+               "host_check_s": t_check, "per_round": rounds}
+        rec[label][kind] = row
+        tot = {k: sum(x[k] for x in rounds) for k in
+               ("pack_ms", "segments_ms", "dispatch_ms", "finalize_ms")}
+        print(f"  {label} {kind}: {r.seed_ops} -> {r.n_ops} ops, wall "
+              f"{wall:.3f} s, {r.rounds} rounds, {r.candidates} candidates, "
+              f"{r.dispatches} dispatches, {launches} seg_search[stream] "
+              f"launches, card {row['card_ms']:.3f} ms (CUDA events); host "
+              f"split over the rounds: subset_packed + pack_batch_masked "
+              f"{tot['pack_ms']:.1f} ms, segments {tot['segments_ms']:.1f}, "
+              f"dispatch {tot['dispatch_ms']:.1f} (the kernel "
+              f"{row['card_ms']:.1f} of it), finalize "
+              f"{tot['finalize_ms']:.1f}; one_minimal {r.one_minimal}, "
+              f"certificate on the host {cert}, render_minimal {rv!r}; "
+              f"recorded {want}")
+        print(f"    per round (ms: wall / pack / segments / dispatch / "
+              f"kernel / finalize): " + "; ".join(
+                  f"{x['phase']} {x['wall_ms']:.1f}/{x['pack_ms']:.1f}/"
+                  f"{x['segments_ms']:.1f}/{x['dispatch_ms']:.1f}/"
+                  f"{x['card_ms']:.2f}/{x['finalize_ms']:.1f}"
+                  for x in rounds))
+        _expect(sorted(map(_sig, r.ops)) == sorted(map(_sig, truth)),
+                f"({label}) {kind}: the minimal ops are not the injected "
+                f"truth: {[_sig(o) for o in r.ops]}")
+        _expect(r.one_minimal and not r.partial and cert and rv is False
+                and svg is not None and launches > 0,
+                f"({label}) {kind}: not certified 1-minimal, or no stream "
+                f"launch: {row}")
+        _expect(got == want,
+                f"({label}) {kind}: rounds, candidates, dispatches {got} "
+                f"differ from the recorded {want}")
+
+
+def _shrink_round_batch(dev):
+    """(s10) stale-read's first ddmin round: its two candidates (the
+    halves of every atom) packed as the round packs them, for the
+    kernel-vs-plain comparison."""
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.shrink import Shrinker
+    from comdb2_tpu_torch.shrink.core import _chunks
+
+    h, _ = register_seed(S10_EVENTS, "stale-read")
+    job = Shrinker(h, "cas-register", F=SHRINK_F, device=dev)
+    masks = [job.mask_of(c) for c in _chunks(job.cur, 2)]
+    return TB.pack_batch_masked(job.packed, masks, job.memo)
+
+
+def _shrink_txn(dev, rec, base):
+    """(st): ``minimize(checker="txn")`` on the card on (t2)'s 2400-txn
+    base with ``make_ring(8)`` (``-T``) and ``make_ring(8, dirty=True)``
+    (``-R``) appended: the seed closure at the 4096 bucket, then the
+    rounds through ``closure_diag_batch``; every field equal to
+    ``RECORDED_TXN`` and the ops to the ring's; ``render_minimal``
+    INVALID on the host. Prints the closure's card time per round."""
+    from comdb2_tpu_torch.report.shrink_svg import render_minimal
+    from comdb2_tpu_torch.shrink import minimize
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+
+    rec["st"] = {}
+    for name, dirty in (("-T", False), ("-R", True)):
+        ring = make_ring(8, dirty=dirty)
+        h = base + ring
+        d0 = TCL.DISPATCHES
+        r, wall, spans, card = _traced_run(
+            lambda: minimize(h, checker="txn", device=dev),
+            [_CardTimer(TCL, "_diag_kernel")])
+        rounds = _rounds_split(spans, card)
+        rv, svg = render_minimal(r.ops, checker="txn")
+        got = {k: r.extra.get(k) for k in ("txns", "evidence_txns",
+                                           "anomaly_class", "seed_class")}
+        got.update(rounds=r.rounds, candidates=r.candidates,
+                   dispatches=r.dispatches)
+        rec["st"][name] = {**got, "n_ops": r.n_ops, "seed_ops": r.seed_ops,
+                           "one_minimal": r.one_minimal, "wall_s": wall,
+                           "closure_calls": TCL.DISPATCHES - d0,
+                           "render_minimal_valid": rv,
+                           "per_round": rounds}
+        print(f"  st {name}: {r.seed_ops} -> {r.n_ops} ops, txns "
+              f"{got['txns']}, evidence {got['evidence_txns']}, class "
+              f"{got['anomaly_class']} (seed {got['seed_class']}); "
+              f"{r.rounds} rounds, {r.candidates} candidates, "
+              f"{r.dispatches} closure calls; wall {wall:.3f} s; "
+              f"render_minimal {rv!r}; closure card ms per round: "
+              + ", ".join(f"{x['phase']} {x['card_ms']:.3f}"
+                          for x in rounds))
+        _expect(got == RECORDED_TXN and r.one_minimal
+                and [_sig(o) for o in r.ops] == [_sig(o) for o in ring]
+                and rv is False and svg is not None,
+                f"(st) {name}: {got} / ops {[_sig(o) for o in r.ops]} "
+                f"differ from the recorded {RECORDED_TXN} / the ring, or "
+                f"render_minimal re-checked {rv!r}")
+
+
+def _shrink_filetest(rec):
+    """(sf): ``filetest --shrink --store`` on the INVALID fixtures (exit
+    1; ``minimal.edn``, ``results.edn`` and ``shrink.svg`` in one run
+    directory, certified and re-checked INVALID; ``filetest`` on the
+    written ``minimal.edn`` exits 1), and on ``clean.edn`` (exit 0, the
+    seed-rejection message, no store)."""
+    import contextlib
+    import io
+
+    from comdb2_tpu_torch import filetest
+    from comdb2_tpu_torch.ops.edn import read_edn
+
+    fix = os.path.join(HERE, "tests", "fixtures")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sf_")
+    out = []
+    for path, txn in (("shrink/stale_read.edn", []),
+                      ("txn/g2_item.edn", ["--txn"]),
+                      ("txn/g1c.edn", ["--txn"]),
+                      ("txn/clean.edn", ["--txn"])):
+        store = os.path.join(tmp.name, os.path.basename(path))
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = filetest.main([os.path.join(fix, path), "--shrink",
+                                "--store", store] + txn)
+        row = {"file": path, "exit": rc, "wall_s": time.perf_counter() - t0}
+        if path.endswith("clean.edn"):
+            row["rejected"] = "only INVALID histories shrink" in err.getvalue()
+            row["store_made"] = os.path.exists(store)
+            ok = rc == 0 and row["rejected"] and not row["store_made"]
+        else:
+            root = os.path.join(store, "shrink")
+            runs = [d for d in os.listdir(root) if d != "latest"]
+            run = os.path.join(root, runs[0])
+            files = sorted(os.listdir(run))
+            res = read_edn(open(os.path.join(run, "results.edn")).read())
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc2 = filetest.main([os.path.join(run, "minimal.edn")] + txn)
+            row.update(runs=len(runs), files=files, minimal_ops=res.get(
+                "minimal-ops"), one_minimal=res.get("one-minimal?"),
+                reverified=res.get("reverified-valid?"), minimal_exit=rc2)
+            ok = (rc == 1 and len(runs) == 1 and files == [
+                "minimal.edn", "results.edn", "shrink.svg"]
+                and res.get("one-minimal?") is True
+                and res.get("reverified-valid?") is False and rc2 == 1)
+        row["ok"] = ok
+        out.append(row)
+    tmp.cleanup()
+    rec["sf"] = out
+    print("  sf filetest --shrink: " + "; ".join(
+        f"{r['file']} -> {r['exit']}" + (
+            f" ({r['minimal_ops']} ops, minimal.edn -> {r['minimal_exit']})"
+            if "minimal_exit" in r else " (seed rejected)")
+        for r in out))
+    bad = [r for r in out if not r["ok"]]
+    _expect(not bad, f"(sf) filetest --shrink: {bad}")
+
+
+def _checker_artifacts(dev, rec, h_b, base):
+    """(sa): the checker objects' store artifacts on the card's verdicts:
+    ``Linearizable`` on (b)'s 100k-event INVALID history writes
+    ``linear.svg``; ``Serializable`` on (t2)'s G1c history writes
+    ``serializable.txt`` and ``.svg``; ``IndependentChecker`` on (i)'s
+    256 keys writes every key's ``independent/<k>/results.edn`` and
+    ``history.edn``, and ``linear.svg`` for each INVALID key. Every
+    ``results.edn`` (the two single checkers' maps saved through the
+    store's ``save_2``) reads back equal to the returned map."""
+    from comdb2_tpu_torch.checker.checkers import Linearizable, Serializable
+    from comdb2_tpu_torch.checker.independent import IndependentChecker
+    from comdb2_tpu_torch.harness import store
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.edn import read_edn
+    from comdb2_tpu_torch.ops.synth import txn_anomaly_history
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sa_")
+
+    def saved(name, result):
+        test = {"name": name, "start-time": "run", "results": result,
+                "store-root": os.path.join(tmp.name, "store")}
+        store.save_2(test)
+        back = store.load(name, "run", test["store-root"]).get("results")
+        return back == store._edn_safe(result)
+
+    out = {}
+    d = os.path.join(tmp.name, "linear")
+    t0 = time.perf_counter()
+    r = Linearizable(device=dev).check({"dir": d}, cas_register(), h_b)
+    out["linear"] = {"valid": r["valid?"], "wall_s": time.perf_counter() - t0,
+                     "files": sorted(os.listdir(d)),
+                     "results_edn": saved("linear", r)}
+    d = os.path.join(tmp.name, "serializable")
+    t0 = time.perf_counter()
+    r = Serializable(device=dev).check(
+        {"dir": d}, None, base + _fresh(txn_anomaly_history("g1c"), 10_000))
+    out["serializable"] = {"valid": r["valid?"],
+                           "wall_s": time.perf_counter() - t0,
+                           "files": sorted(os.listdir(d)),
+                           "results_edn": saved("serializable", r)}
+    _, keyed = _i_histories()
+    d = os.path.join(tmp.name, "independent")
+    t0 = time.perf_counter()
+    r = IndependentChecker(Linearizable(device=dev)).check(
+        {"dir": d}, cas_register(), keyed)
+    wall = time.perf_counter() - t0
+    bad_keys = []
+    for k in range(KEYS):
+        kd = os.path.join(d, "independent", str(k))
+        files = sorted(os.listdir(kd))
+        want = ["history.edn", "results.edn"] + (
+            ["linear.svg"] if k in r["failures"] else [])
+        back = read_edn(open(os.path.join(kd, "results.edn")).read())
+        if files != sorted(want) or \
+                back != store._edn_safe(r["results"][k]):
+            bad_keys.append(k)
+    out["independent"] = {"valid": r["valid?"], "failures": r["failures"],
+                          "wall_s": wall, "bad_keys": bad_keys}
+    tmp.cleanup()
+    rec["sa"] = out
+    print(f"  sa artifacts: Linearizable on (b) {out['linear']['files']} "
+          f"({out['linear']['wall_s']:.2f} s); Serializable on (t2)+G1c "
+          f"{out['serializable']['files']} "
+          f"({out['serializable']['wall_s']:.2f} s); IndependentChecker on "
+          f"(i)'s {KEYS} keys: results.edn + history.edn for every key, "
+          f"linear.svg for the INVALID keys {r['failures']} ({wall:.2f} s); "
+          f"results.edn read back equal: linear "
+          f"{out['linear']['results_edn']}, serializable "
+          f"{out['serializable']['results_edn']}, keys differing "
+          f"{bad_keys}")
+    _expect(out["linear"]["valid"] is False
+            and out["linear"]["files"] == ["linear.svg"]
+            and out["linear"]["results_edn"]
+            and out["serializable"]["valid"] is False
+            and out["serializable"]["files"] == ["serializable.svg",
+                                                 "serializable.txt"]
+            and out["serializable"]["results_edn"]
+            and r["failures"] and not bad_keys,
+            f"(sa) checker artifacts: {out}")
+
+
+def _shrink_path(dev, h_b):
+    """Path 5, shrink: requests (s10), (s), (st), (sf), (sa). Returns its
+    record and (s10)'s first-round batch for the kernel-vs-plain
+    comparison; raises ``_Failed``."""
+    from comdb2_tpu_torch.ops.synth import list_append_history
+
+    rec = {}
+    t0 = time.perf_counter()
+    base = list_append_history(random.Random(2048), n_procs=16,
+                               n_txns=TXN_COUNT, n_keys=64, max_micro=4)
+    rec["txn_base_generate_s"] = time.perf_counter() - t0
+    steps = (("s10", lambda: _shrink_linear(dev, rec, "s10", S10_EVENTS)),
+             ("s", lambda: _shrink_linear(dev, rec, "s", S_EVENTS)),
+             ("st", lambda: _shrink_txn(dev, rec, base)),
+             ("sf", lambda: _shrink_filetest(rec)),
+             ("sa", lambda: _checker_artifacts(dev, rec, h_b, base)))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        step()
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        print(f"  ({name} took {rec[f'{name}_s']:.1f} s)")
+    return rec, _shrink_round_batch(dev)
+
+
 def main() -> int:
     try:
         import torch
@@ -1853,6 +2367,23 @@ def main() -> int:
         return _fail(f"the last-batch-engines path launched no stream "
                      f"kernel or pair sort: {path_counts}")
 
+    # --- path 5: shrink, counted ------------------------------------------
+    print("shrink: minimize (s10) 10k and (s) 100k events, txn minimal "
+          "cycles (st), filetest --shrink (sf), checker artifacts (sa)")
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        shrink_rec, batch_s = _shrink_path(dev, h_b)
+    except _Failed as e:
+        return _fail(str(e))
+    path_counts["shrink"] = counts()
+    print(f"  (path 5 took {time.perf_counter() - t0:.1f} s)")
+    print(f"LAUNCHES (shrink path): {path_counts['shrink']}")
+    if not (path_counts["shrink"]["seg_search[stream]"] > 0
+            and path_counts["shrink"]["closure_diag"] > 0):
+        return _fail(f"the shrink path launched no stream kernel or "
+                     f"closure: {path_counts}")
+
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
           "segments (head from the initial carry; tail ending at the "
@@ -2042,6 +2573,22 @@ def main() -> int:
     if any(v != LT.UNKNOWN for v in over_j):
         return _fail(f"(j) lanes 0-{J_OVERFLOW - 1} did not overflow the "
                      f"kernel: statuses {over_j}")
+    # (s10) stale-read's first ddmin round, re-run outside the counted
+    # path: its two candidates' launch against the plain stream version
+    info_s: dict = {}
+    st_s, _, _ = TB.check_batch(batch_s, F=SHRINK_F, info=info_s,
+                                device=dev)
+    (streams_s, stride_s, spec_s, table_s, seg_s, plan_s,
+     _) = stream_inputs(batch_s, info_s)
+    got_s, _, _, plain_ms_round, e_ = stream_check(
+        f"(s10) first ddmin round ({len(batch_s)} candidates, "
+        f"{sum(s.ok_proc.shape[0] for s in streams_s)} segments)",
+        seg_s, stride_s, table_s, spec_s, max(len(g_) for g_ in plan_s))
+    err_s = max(err_s, e_)
+    shrink_rec["s10"]["round_plain_ms"] = plain_ms_round
+    if st_s.tolist() != [LT.VALID, LT.INVALID]:
+        return _fail(f"(s10) first round statuses {st_s.tolist()}, want "
+                     f"the base half VALID and the anomaly's half INVALID")
 
     per_sm_g = SK.warp_streams_per_sm(spec_g, table_g.numel())
     batch_res["g"]["kernel"] = {
@@ -2206,7 +2753,7 @@ def main() -> int:
               "w") as fh:
         json.dump({"gpu": gpu, "requests": results, "batches": batch_res,
                    "checker_layer": checker_rec,
-                   "last_batch_engines": escal_rec,
+                   "last_batch_engines": escal_rec, "shrink": shrink_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

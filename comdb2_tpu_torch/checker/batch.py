@@ -43,8 +43,8 @@ host arrays as in the reference, and the table and slot floors are
 accepted and not used.
 
 Not ported yet: the mesh routes raise
-:class:`~.linear.EngineNotPorted`, and ``pack_batch_masked`` is
-missing. ``check_batch_async`` stages nothing ahead:
+:class:`~.linear.EngineNotPorted`. ``check_batch_async`` stages nothing
+ahead:
 its ``finalize`` is computed when it is called, and the batch is not
 sliced for host/device overlap.
 """
@@ -177,6 +177,33 @@ def pack_batch(histories: Sequence[Union[Sequence[Op], PackedHistory]],
     return PackedBatch(packeds=packeds, memo=mm, kind=np.stack(kinds),
                        proc=np.stack(procs), tr=np.stack(trs), P=P,
                        remaps=remaps)
+
+
+def pack_batch_masked(parent: PackedHistory, masks: Sequence,
+                      memo: MemoizedModel) -> PackedBatch:
+    """The shrink path: B sub-history candidates of ONE packed parent as
+    a :class:`PackedBatch`, without re-packing or re-interning. Every
+    candidate is a pair-closed row slice
+    (:func:`~..ops.columnar.subset_packed`) whose id tables are the
+    parent's, so the union transition table is the parent's and every
+    remap is the identity: :func:`pack_batch`'s union pass over all the
+    candidates' ops disappears.
+
+    ``memo`` must be memoized over the parent's transitions with a depth
+    bound at least the parent's invoke count (a candidate cannot
+    linearize more ops than the parent invoked, so one memo serves every
+    round). Packed with the ``build_streams=False`` layout: candidates
+    check through the stream, keys, mxu and flat engines, and a kernel
+    overflow that only the vmap engine could take stays ``unknown``."""
+    from ..ops.columnar import subset_packed
+
+    packeds = [subset_packed(parent, m) for m in masks]
+    ident = np.arange(len(parent.transition_table), dtype=np.int32)
+    empty = np.zeros((len(packeds), 0), np.int32)
+    return PackedBatch(packeds=packeds, memo=memo, kind=empty,
+                       proc=empty, tr=empty,
+                       P=max(len(parent.process_table), 1),
+                       remaps=[ident] * len(packeds))
 
 
 @dataclass
@@ -547,4 +574,5 @@ def merge_escalation(status, fail_at, n_final, idx, st2, fa2, n2):
 
 __all__ = ["PackedBatch", "SegmentBatch", "check_batch",
            "check_batch_async", "escalation_indices", "merge_escalation",
-           "pack_batch", "pick_engine", "segment_batch"]
+           "pack_batch", "pack_batch_masked", "pick_engine",
+           "segment_batch"]

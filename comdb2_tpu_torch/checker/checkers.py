@@ -16,11 +16,10 @@ Mirrors the reference's ``jepsen/checker.clj``:
 
 The counterpart of the JAX package's ``checker/checkers.py``, with the
 same verdict maps. ``Linearizable`` and ``Serializable`` take
-``device=`` (``None`` means ``cuda``). Not ported yet: the store
-artifacts the JAX package writes on a failure when the test names a
-store directory (``linear.svg``, ``serializable.txt`` /
-``serializable.svg``); they wait for the harness and report slice, and
-never change a verdict map.
+``device=`` (``None`` means ``cuda``). On a failure, when the test or
+``opts`` names a store directory, they write the JAX package's
+artifacts there, byte for byte: ``linear.svg``, and
+``serializable.txt`` / ``serializable.svg``.
 """
 
 from __future__ import annotations
@@ -130,7 +129,30 @@ class Linearizable(Checker):
             out["configs"] = out["configs"][:10]
         if out.get("paths"):
             out["paths"] = out["paths"][:10]
+        if a.valid is False:
+            self._render_svg(test, history, a, opts)
         return out
+
+    @staticmethod
+    def _render_svg(test, history, a, opts) -> None:
+        """Drop ``linear.svg`` (failing window + final paths) into the
+        test's store dir on failure, like the reference's linearizable
+        checker (``checker.clj:71-85`` → ``render-analysis!``).
+        Best-effort host code, as in the JAX package: rendering must
+        never destroy a verdict."""
+        import os
+
+        from ..harness.store import artifact_dir
+
+        base = artifact_dir(test, opts)
+        if base is None:
+            return
+        try:
+            from ..report import linear_svg
+            linear_svg.render_analysis(list(history), a,
+                                       os.path.join(base, "linear.svg"))
+        except Exception:
+            pass
 
 
 linearizable = Linearizable()
@@ -164,8 +186,41 @@ class Serializable(Checker):
             if not ops:
                 return {"valid?": UNKNOWN,
                         "error": "adapter produced no txn ops"}
-        return check_txn(ops, backend=self.backend,
-                         realtime=self.realtime, device=self.device)
+        out = check_txn(ops, backend=self.backend,
+                        realtime=self.realtime, device=self.device)
+        if out["valid?"] is False:
+            self._render(test, out, opts)
+        return out
+
+    @staticmethod
+    def _render(test, result, opts) -> None:
+        """Drop ``serializable.txt`` + ``serializable.svg`` (the
+        decoded cycle) into the store dir on failure; best-effort host
+        code, like the linearizable checker's SVG."""
+        import os
+
+        from ..harness.store import artifact_dir
+
+        base = artifact_dir(test, opts)
+        if base is None:
+            return
+        try:
+            from ..report import txn_svg
+            from ..txn.counterexample import render_text
+
+            os.makedirs(base, exist_ok=True)
+            cex = result.get("counterexample")
+            with open(os.path.join(base, "serializable.txt"),
+                      "w") as fh:
+                if cex:
+                    fh.write(render_text(cex) + "\n")
+                for a in result.get("anomalies", ()):
+                    fh.write(f"{a}\n")
+            if cex:
+                txn_svg.render_cycle(
+                    cex, os.path.join(base, "serializable.svg"))
+        except Exception:
+            pass
 
 
 serializable = Serializable()

@@ -11,17 +11,22 @@ subhistories are packed against ONE shared memoized model and checked
 in one device launch (:func:`~.batch.check_batch`, the segment-search
 kernel's stream mode), on the base checker's device.
 
-Not ported yet: the per-key store artifacts (``independent/<k>/``) the
-JAX package writes when the test names a store directory — they wait
-for the harness and report slice and change no verdict — and the
-``mesh=`` route, which raises :class:`~.linear.EngineNotPorted`.
+When the test or ``opts`` names a store directory, each key's
+``results.edn`` and ``history.edn`` go under ``independent/<k>/``, and
+the base checker writes its own artifacts there (``linear.svg`` for an
+INVALID key), as in the JAX package. Not ported yet: the ``mesh=``
+route, which raises :class:`~.linear.EngineNotPorted`.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterable, List
 
+from ..harness.store import _edn_safe, artifact_dir
 from ..models.memo import MemoOverflow
+from ..ops.edn import write_edn
+from ..ops.history import history_to_edn
 from ..ops.kv import KVTuple, is_tuple, tuple_, wrap_keyed_history
 from ..ops.op import Op
 from .checkers import Checker, Linearizable, check_safe, merge_valid
@@ -83,15 +88,29 @@ class IndependentChecker(Checker):
                                   "not ported yet")
         ks = history_keys(history)
         subs = subhistories(ks, history)
+        # per-key artifact routing: a failing base checker writes its
+        # counterexample under independent/<k>/ (the reference's per-key
+        # store layout) instead of every key clobbering one linear.svg
+        base_dir = artifact_dir(test, opts)
+
+        def key_opts(k):
+            if base_dir is None:
+                return opts
+            return {**(opts or {}),
+                    "dir": os.path.join(base_dir, "independent", str(k))}
+
         # honor an explicit host backend: no device batch for it
         device_ok = not (isinstance(self.base, Linearizable)
                          and getattr(self.base, "backend", None) == "host")
         if isinstance(self.base, Linearizable) and len(ks) > 1 \
                 and device_ok:
-            results = self._check_linearizable_batch(model, subs, opts)
+            results = self._check_linearizable_batch(model, subs,
+                                                     key_opts)
         else:
-            results = {k: check_safe(self.base, test, model, subs[k], opts)
+            results = {k: check_safe(self.base, test, model, subs[k],
+                                     key_opts(k))
                        for k in ks}
+        self._write_artifacts(base_dir, subs, results)
         # false > unknown > true, like compose; only definitively-invalid
         # keys are failures (the reference treats :unknown as truthy,
         # independent.clj:288-295)
@@ -100,8 +119,28 @@ class IndependentChecker(Checker):
                     if r.get("valid?") is False]
         return {"valid?": valid, "results": results, "failures": failures}
 
+    @staticmethod
+    def _write_artifacts(base, subs, results) -> None:
+        """Persist per-key results.edn + history.edn under
+        ``independent/<k>/`` in the store dir ``base`` when there is one
+        (``independent.clj:272-283``); best-effort host code, as in the
+        JAX package: an unserializable payload must not turn a computed
+        verdict into an error."""
+        if base is None:
+            return
+        try:
+            for k, r in results.items():
+                d = os.path.join(base, "independent", str(k))
+                os.makedirs(d, exist_ok=True)
+                with open(os.path.join(d, "results.edn"), "w") as fh:
+                    fh.write(write_edn(_edn_safe(r)))
+                with open(os.path.join(d, "history.edn"), "w") as fh:
+                    fh.write(history_to_edn(subs[k]))
+        except Exception:
+            pass
+
     def _check_linearizable_batch(self, model, subs: Dict[Any, List[Op]],
-                                  opts=None) -> Dict[Any, dict]:
+                                  key_opts) -> Dict[Any, dict]:
         """One device launch for all keys; unknowns (frontier overflow),
         invalid keys and batches the port cannot take re-check each key
         alone through the escalating path."""
@@ -112,7 +151,8 @@ class IndependentChecker(Checker):
         ks = list(subs)
 
         def each_alone():
-            return {k: check_safe(self.base, {}, model, subs[k], opts)
+            return {k: check_safe(self.base, {}, model, subs[k],
+                                  key_opts(k))
                     for k in ks}
 
         # The JAX package catches every exception around packing and the
@@ -143,7 +183,7 @@ class IndependentChecker(Checker):
                 # invalid or overflow: re-check solo for an exact verdict
                 # with escalation and a decoded counterexample
                 results[k] = check_safe(self.base, {}, model, subs[k],
-                                        opts)
+                                        key_opts(k))
         return results
 
 

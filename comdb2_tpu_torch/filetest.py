@@ -19,8 +19,13 @@ arg names the reader), the checker's own spans (for ``linear``:
 ``linear.kernel`` and ``linear.decode`` inside it) and
 ``filetest.finalize`` (the verdict map and its printing).
 
-Not ported yet: ``--service``, ``--shrink``, ``--store`` and
-``--follow``; they wait for the serving, shrink and streaming slices.
+``--shrink`` minimizes an INVALID history to a 1-minimal sub-history
+(:func:`.shrink.minimize`, on the same device) and writes
+``minimal.edn``, ``results.edn`` and the re-rendered ``shrink.svg``
+under ``--store``; the exit code stays the seed verdict's.
+
+Not ported yet: ``--service`` and ``--follow``; they wait for the
+serving and streaming slices.
 """
 
 from __future__ import annotations
@@ -73,6 +78,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--keyed", action="store_true",
                    help="re-tag [k v] op values as keyed tuples "
                         "(independent-generator histories)")
+    p.add_argument("--shrink", action="store_true",
+                   help="on INVALID, minimize to a 1-minimal "
+                        "sub-history (completion-pair ddmin, batched "
+                        "on the device; docs/shrink.md) and write "
+                        "minimal.edn + a re-rendered SVG into the "
+                        "store (see --store); the exit code stays the "
+                        "seed verdict's")
+    p.add_argument("--store", default="store", metavar="DIR",
+                   help="store root for --shrink artifacts (default "
+                        "store/)")
     p.add_argument("--trace", metavar="PATH",
                    help="write a Chrome/Perfetto trace-event JSON of "
                         "this run (parse / pack / device / finalize "
@@ -161,11 +176,64 @@ def _run(args) -> int:
         pprint.pprint(result)
         valid = result.get("valid?")
 
+    if args.shrink:
+        _shrink(history, valid, args)
+
     if valid is True:
         return 0
     if valid == "unknown":
         return 2
     return 1
+
+
+def _shrink(history, valid, args) -> None:
+    """``--shrink``: minimize an INVALID seed and persist the result;
+    any other seed verdict is reported on stderr and shrinks nothing."""
+    if args.checker not in ("linear", "txn"):
+        print("--shrink supports the linear and txn checkers only",
+              file=sys.stderr)
+        return
+    if valid is not False:
+        # shrinking a VALID history has nothing to preserve, shrinking
+        # an UNKNOWN would loop on capacity-limited verdicts
+        print(f"--shrink: seed verdict is {valid!r} — only "
+              "INVALID histories shrink", file=sys.stderr)
+        return
+    from .shrink import SeedVerdictError, minimize
+
+    try:
+        r = minimize(history, checker=args.checker, model=args.model,
+                     realtime=args.realtime, device=args.device)
+    except SeedVerdictError as e:
+        # the main analysis escalates frontier capacity (or ran on the
+        # host); the shrinker's fixed-F seed re-check can still come
+        # back UNKNOWN
+        print(f"--shrink: {e}", file=sys.stderr)
+        return
+    _save_shrink_artifacts(r, args)
+
+
+def _save_shrink_artifacts(result, args) -> None:
+    """Persist minimal.edn + results.edn + the re-rendered SVG into the
+    store (one run dir); the SVG re-render re-checks the minimal
+    history on the host and its verdict lands in results.edn."""
+    from .harness.store import save_shrink
+    from .ops.history import history_to_edn
+    from .report import shrink_svg
+
+    ops = list(result.ops)
+    rv, svg = shrink_svg.render_minimal(
+        ops, checker=args.checker, model=args.model,
+        realtime=args.realtime)
+    d = save_shrink(history_to_edn(ops),
+                    shrink_svg.results_map(result, reverified=rv),
+                    svg=svg, store_root=args.store)
+    print(f"shrink: {len(ops)} ops -> {d}/minimal.edn", file=sys.stderr)
+    if rv is not False:
+        # a clean re-check means the minimizer and the offline checker
+        # disagree: surface it, never hide it
+        print(f"shrink: WARNING minimal history re-checked {rv!r}",
+              file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -196,4 +196,39 @@ def pack_history_columnar(history: List[Op], completed: bool = False):
         ops_list=(list(history) if completed else None))
 
 
-__all__ = ["intern_transitions", "pack_history_columnar"]
+def subset_packed(parent, keep: np.ndarray):
+    """Row-sliced ``PackedHistory`` view of ``parent``, the shrink
+    candidate path: one boolean gather per column and the parent's
+    intern tables shared (process / f / value / transition ids keep the
+    parent's meaning, so a whole batch of candidates rides the parent's
+    memoized model without re-interning). ``keep`` must be pair-closed,
+    both rows of every invoke/complete pair kept or dropped together
+    (``ValueError`` otherwise): a half-op would desynchronise the
+    per-process alternation the segment pass relies on."""
+    from .packed import PackedHistory
+
+    keep = np.asarray(keep, bool)
+    n = len(parent.process)
+    if keep.shape != (n,):
+        raise ValueError(f"mask shape {keep.shape} != ({n},)")
+    pair = np.asarray(parent.pair)
+    kept_pair = pair[keep]
+    has = kept_pair >= 0
+    if has.any() and not keep[kept_pair[has]].all():
+        raise ValueError("mask is not pair-closed: a kept op's "
+                         "invoke/complete partner is dropped")
+    idx_new = np.cumsum(keep, dtype=np.int64) - 1
+    new_pair = np.where(
+        has, idx_new[np.clip(kept_pair, 0, None)], -1).astype(np.int32)
+    return PackedHistory(
+        process=parent.process[keep], type=parent.type[keep],
+        f=parent.f[keep], value=parent.value[keep],
+        trans=parent.trans[keep], pair=new_pair,
+        fails=parent.fails[keep], time=parent.time[keep],
+        process_table=parent.process_table, f_table=parent.f_table,
+        value_table=parent.value_table,
+        transition_table=parent.transition_table)
+
+
+__all__ = ["intern_transitions", "pack_history_columnar",
+           "subset_packed"]

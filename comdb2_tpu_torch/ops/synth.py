@@ -12,7 +12,8 @@ Same generators as the JAX package's, draw for draw: the same
 ``random.Random`` seed gives the same history in both packages
 (register histories, and list-append txn histories with
 :func:`list_append_history`; :func:`txn_anomaly_history` gives one
-fixed history per Adya anomaly class).
+fixed history per Adya anomaly class), and :func:`inject_anomaly`
+plants the same known-minimal register violations.
 """
 
 from __future__ import annotations
@@ -115,6 +116,76 @@ def mutate(rng: random.Random, history: List[O.Op],
         v = op.value if isinstance(op.value, int) else 0
         h[i] = op.with_(value=(v + 1) % values)
     return h
+
+
+#: anomaly kinds :func:`inject_anomaly` plants
+ANOMALY_KINDS = ("stale-read", "lost-update", "dup-apply")
+
+
+def inject_anomaly(history: List[O.Op], kind: str):
+    """Plant one known-minimal register violation at the END of a
+    valid history; returns ``(history2, truth)`` where ``truth`` is
+    the exact minimal completed op set a 1-minimal shrinker must
+    recover — so shrink tests can assert exact-minimum recovery, not
+    just 1-minimality.
+
+    The injected ops run sequentially on FRESH processes with FRESH
+    values, so they never interfere with pending base ops. Kinds:
+
+    - ``stale-read``   — ``w(A); w(B); r→A``: the read returns the
+      overwritten value. Truth: the read pair alone (``r→A`` with no
+      other ops can't be linearized from the initial state).
+    - ``lost-update``  — ``w(A); cas(None→B) ok``: the cas observed
+      the INITIAL state, so the write's update was lost. Truth: both
+      pairs — each is valid alone (``cas(None→B)`` succeeds from the
+      initial state; reads of ``None`` are model wildcards, so only
+      the write+cas conjunction fails).
+    - ``dup-apply``    — ``w(A); cas(A→B) ok; cas(A→B) ok``: the same
+      cas applied twice (the ``-D`` no-dedup shape). Truth: one cas
+      pair (a lone ``cas(A→B) ok`` asserts a state nothing
+      established); the two copies are process/value-identical, so
+      multiset comparison is deterministic.
+
+    Exact-minimum recovery is provable when every sub-history of the
+    base stays valid AND the base can't substitute for an injected
+    op: write-only bases for stale-read/dup-apply, read-only bases
+    (``r→None`` wildcards constrain nothing) for lost-update
+    (``docs/shrink.md`` §ground truth). On mixed bases a smaller
+    spurious minimum can exist — a read whose justifying write was
+    dropped is still a violation.
+    """
+    ints = [v for op in history
+            for v in (op.value if isinstance(op.value, tuple)
+                      else (op.value,))
+            if isinstance(v, int)]
+    a = max(ints, default=0) + 1
+    b = a + 1
+    pids = [p for op in history for p in (op.process,)
+            if isinstance(p, int)]
+    p0 = max(pids, default=0) + 1
+
+    def pair(p, f, inv_v, ok_v):
+        return [O.invoke(p, f, inv_v), O.ok(p, f, ok_v)]
+
+    if kind == "stale-read":
+        extra = (pair(p0, "write", a, a) + pair(p0, "write", b, b)
+                 + pair(p0 + 1, "read", None, a))
+        # truth in COMPLETED form (invoke values back-filled from the
+        # ok — the form shrink results and history.complete emit)
+        truth = pair(p0 + 1, "read", a, a)
+    elif kind == "lost-update":
+        extra = (pair(p0, "write", a, a)
+                 + pair(p0 + 1, "cas", (None, b), (None, b)))
+        truth = extra[:]
+    elif kind == "dup-apply":
+        extra = (pair(p0, "write", a, a)
+                 + pair(p0 + 1, "cas", (a, b), (a, b))
+                 + pair(p0 + 1, "cas", (a, b), (a, b)))
+        truth = extra[2:4]
+    else:
+        raise ValueError(f"unknown anomaly kind {kind!r} "
+                         f"(one of {ANOMALY_KINDS})")
+    return list(history) + extra, truth
 
 
 def pinned_wide_history(n_pinned: int = 18,

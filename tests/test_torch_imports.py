@@ -18,6 +18,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "comdb2_tpu_torch"
 
 
+#: the shrink slice's subpackages and modules
+SHRINK_SLICE = ("shrink", "shrink.core", "shrink.verdicts", "shrink.txn",
+                "harness", "harness.store", "report", "report.svg",
+                "report.linear_svg", "report.txn_svg", "report.shrink_svg")
+
+
 def _forbidden(name: str) -> bool:
     return (name in ("jax", "comdb2_tpu")
             or name.startswith(("jax.", "comdb2_tpu.")))
@@ -42,7 +48,7 @@ def test_package_has_the_slice_modules():
               "checker.wl.batch", "checker.wl.synth", "txn.edges",
               "txn.scc", "txn.closure_torch", "txn.counterexample",
               "txn.check", "txn.adapters", "checker.brute",
-              "ops.native_loader"):
+              "ops.native_loader") + SHRINK_SLICE:
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -60,19 +66,27 @@ def test_import_pulls_in_no_jax_in_a_fresh_interpreter():
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('comdb2_tpu_torch')]))\n"
         "print(bad)\n"
+        "print(sorted(n[len('comdb2_tpu_torch.'):] for n in sys.modules\n"
+        "             if n.startswith(('comdb2_tpu_torch.shrink',\n"
+        "                              'comdb2_tpu_torch.harness',\n"
+        "                              'comdb2_tpu_torch.report'))))\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                        env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    n_loaded, bad = r.stdout.strip().splitlines()
+    n_loaded, bad, slice_mods = r.stdout.strip().splitlines()
     assert int(n_loaded) >= 20
     assert bad == "[]"
+    assert sorted(SHRINK_SLICE) == eval(slice_mods)
 
 
 def test_no_module_imports_jax_or_the_jax_package():
     found = []
+    scanned = {str(p.relative_to(PKG).with_suffix("")).replace("/", ".")
+               .replace(".__init__", "") for p in PKG.rglob("*.py")}
+    assert set(SHRINK_SLICE) <= scanned
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
