@@ -10,7 +10,9 @@ per source, all at once), drives the port's main paths through their
 public entry points (``checker.analysis``, ``filetest``,
 ``checker.batch.check_batch`` with every engine, the checker layer's
 ``txn.check_txn``, ``checker.wl.check_wl_batch`` and
-``IndependentChecker``, and ``shrink.minimize``) at full size, holds every kernel against
+``IndependentChecker``, ``shrink.minimize``, and the streaming
+sessions ``stream.StreamSession``, ``stream.engine.MegaBatch``,
+``stream.wl`` and ``filetest --follow``) at full size, holds every kernel against
 its plain PyTorch version on the same card tensors, and times both. It
 imports nothing of JAX and nothing of the JAX package, and falls back
 to nothing: any failure exits non-zero before the result line.
@@ -141,6 +143,40 @@ Counterexample shrink, counted as a fifth path:
   256 keys (every key's ``results.edn`` and ``history.edn``, and
   ``linear.svg`` for the INVALID keys); each ``results.edn`` reads back
   equal to the returned map.
+
+Streaming sessions, counted as a sixth path (``stream``; every session
+on the card with ``device=None``, each verdict held to its one-shot
+oracle after the path's counts):
+
+- (v1) (a)'s 100k events appended live in 256-event deltas (391
+  appends) to one ``StreamSession("cas-register")``: ``auto`` keeps the
+  kernel rung, one launch and one host sync per append; verdict equal
+  to (a)'s; per-append wall (median, p99, first- and last-quarter
+  means), card time per append (CUDA events around each launch), host
+  syncs, dispatches, carry bytes, the card's idle share, and
+  ``analysis`` of the prefix from scratch at 25 / 50 / 75 / 100%;
+- (v2) (b) streamed the same way: it latches at (b)'s op index, the
+  appends after the latch dispatch nothing, ``counterexample()``
+  equals (b)'s configs and paths;
+- (v3) (d) in 64-event deltas: one kernel overflow at 128, one replay
+  onto the xla rung, in-place escalation; VALID as (d);
+- (v4) (f) through the MXU rung, escalating in place to 131072;
+- (v5) 16 sessions of (i)'s keys in 128-event beats, one ``MegaBatch``
+  per beat (16 launches, one readback), then 4 xla-rung and 4
+  mxu-rung lanes forced with ``engine=``: one call per beat, carries
+  and verdicts bit-equal to the same sessions run solo;
+- (v6) bank (512 reads, 512 transfers, 8 accounts) and sets (8000
+  elements) sessions with their ``total`` / ``lost`` twins, in deltas,
+  equal to ``check_wl_batch`` on the whole history; a 16-lane bank
+  megabatch bit-equal to solo;
+- (v7) (v1) checkpointed at 50% through ``to_wire`` / ``from_wire``,
+  restored on the card and on the CPU, both finishing equal to (v1);
+- (v8) ``filetest --follow`` on (e)'s history written by a writer
+  thread in 10 pieces, the last line unterminated: exit code and
+  verdict equal to ``filetest`` on the whole file;
+- (v9), after the counts: every launch of (v1)'s first 16 appends and
+  each lane of one fused (v5) beat bit-equal to
+  ``seg_search_reference`` on the same card tensors.
 
 In the single-history path, (e3) is (e) again with ``filetest --trace``:
 the span totals per stage (parse, pack, device with segments / kernel /
@@ -1971,6 +2007,655 @@ def _shrink_path(dev, h_b):
     return rec, _shrink_round_batch(dev)
 
 
+# --- path 6: streaming sessions ---------------------------------------------
+
+STREAM_DELTA = 256        # (v1), (v2): events per append (391 appends of (a))
+STREAM_D_DELTA = 64       # (v3): events per append of (d)
+STREAM_LANES = 16         # (v5): the top of MEGABATCH_LANES
+STREAM_BEAT = 128         # (v5): events per beat
+STREAM_SIDE = 640         # (v5): events of the forced xla lanes
+STREAM_PARITY = 16        # (v9): appends of (v1) held against the plain version
+
+
+class _TimedLaunches:
+    """Times every segment-search launch by CUDA events recorded right
+    before and right after the library call (so the wrapper's host
+    work stays outside), and keeps copies of the launches' inputs and
+    outputs while ``capture`` is set: ``build.load`` hands out a proxy
+    of the seg_search library while installed."""
+
+    def __init__(self):
+        self.events = []          # (e0, e1) per launch, in order
+        self.captured = []        # (args, (ws_out, stat_out)) per launch
+        self.capture = False
+        self._orig = None
+
+    def install(self):
+        from comdb2_tpu_torch.kernels import build
+        from comdb2_tpu_torch.stream import engine as TE
+
+        self._orig = (build.load, TE.stream_kernel_chunk)
+        load, chunk = self._orig
+        outer = self
+
+        class _Lib:
+            def __init__(self, lib):
+                self._lib = lib
+
+            def __getattr__(self, name):
+                return getattr(self._lib, name)
+
+            def seg_search_launch(self, *args):
+                import torch
+
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                err = self._lib.seg_search_launch(*args)
+                e1.record()
+                outer.events.append((e0, e1))
+                return err
+
+        def timed_load(name="seg_search", defines=()):
+            lib = load(name, defines)
+            return _Lib(lib) if name == "seg_search" and not defines \
+                else lib
+
+        def capturing_chunk(seg, off, stride, ws, stat, table, spec):
+            out = chunk(seg, off, stride, ws, stat, table, spec)
+            if outer.capture:
+                outer.captured.append((
+                    (seg.clone(), off, stride, ws.clone(), stat.clone(),
+                     table.clone(), spec),
+                    (out[0].clone(), out[1].clone())))
+            return out
+
+        build.load = timed_load
+        TE.stream_kernel_chunk = capturing_chunk
+
+    def uninstall(self):
+        from comdb2_tpu_torch.kernels import build
+        from comdb2_tpu_torch.stream import engine as TE
+
+        build.load, TE.stream_kernel_chunk = self._orig
+
+    def ms(self, lo: int, hi: int) -> float:
+        """Card milliseconds of launches [lo, hi)."""
+        return sum(e0.elapsed_time(e1) for e0, e1 in self.events[lo:hi])
+
+
+class _SyncCount:
+    """Counts the kernel rung's device-to-host readbacks: a stat read
+    that is not already on the host, and a carry re-encode on growth."""
+
+    def __init__(self):
+        self.n = 0
+        self._orig = None
+
+    def install(self):
+        from comdb2_tpu_torch.stream import engine as TE
+
+        self._orig = (TE.KernelCarry.read, TE.KernelCarry.respec)
+        read, respec = self._orig
+        outer = self
+
+        def counted_read(eng):
+            if eng._read is None:
+                outer.n += 1
+            return read(eng)
+
+        def counted_respec(eng, *a):
+            spec0 = eng.spec
+            ok = respec(eng, *a)
+            if ok and eng.spec != spec0:
+                outer.n += 1
+            return ok
+
+        TE.KernelCarry.read = counted_read
+        TE.KernelCarry.respec = counted_respec
+
+    def uninstall(self):
+        from comdb2_tpu_torch.stream import engine as TE
+
+        TE.KernelCarry.read, TE.KernelCarry.respec = self._orig
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _stream_live(rec, timer, syncs, h_a):
+    """(v1): (a)'s 100k events appended live, STREAM_DELTA at a time, to
+    one ``StreamSession`` on the card; checkpointed (wire form) at 50%."""
+    import torch
+
+    from comdb2_tpu_torch.stream import StreamSession
+    from comdb2_tpu_torch.stream import checkpoint as CK
+    from comdb2_tpu_torch.stream import engine as TE
+
+    s = StreamSession("cas-register")
+    cuts = list(range(0, len(h_a), STREAM_DELTA))
+    walls, card, n_sync, per_disp = [], [], [], []
+    wire = None
+    d_all = TE.DISPATCHES
+    for j, i in enumerate(cuts):
+        timer.capture = j < STREAM_PARITY
+        k0, s0, d0 = len(timer.events), syncs.n, TE.DISPATCHES
+        t0 = time.perf_counter()
+        s.append(h_a[i:i + STREAM_DELTA])
+        walls.append(time.perf_counter() - t0)
+        card.append((k0, len(timer.events)))
+        n_sync.append(syncs.n - s0)
+        per_disp.append(TE.DISPATCHES - d0)
+        if j == len(cuts) // 2 - 1:
+            wire = CK.to_wire(s.checkpoint())
+            ck_at = i + STREAM_DELTA
+    timer.capture = False
+    t0 = time.perf_counter()
+    out = s.finalize_input()
+    t_fin = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    card_ms = [timer.ms(lo, hi) for lo, hi in card]
+    q = max(len(walls) // 4, 1)
+    r = {"appends": len(cuts), "delta_events": STREAM_DELTA,
+         "verdict": {k: out.get(k) for k in (
+             "valid", "op_index", "final_count", "engine", "segments",
+             "dispatches", "replays", "checked_through")},
+         "engines_tried": out.get("engines_tried"),
+         "wall_ms": {"median": _pct(walls, 0.5) * 1e3,
+                     "p99": _pct(walls, 0.99) * 1e3,
+                     "first_quarter_mean": sum(walls[:q]) / q * 1e3,
+                     "last_quarter_mean": sum(walls[-q:]) / q * 1e3,
+                     "total_s": sum(walls), "finalize_ms": t_fin * 1e3},
+         "card_ms": {"mean": sum(card_ms) / len(card_ms),
+                     "median": _pct(card_ms, 0.5),
+                     "first_quarter_mean": sum(card_ms[:q]) / q,
+                     "last_quarter_mean": sum(card_ms[-q:]) / q,
+                     "total": sum(card_ms)},
+         "host_syncs_per_append": sum(n_sync) / len(n_sync),
+         "host_syncs_max": max(n_sync),
+         "dispatches": TE.DISPATCHES - d_all,
+         "dispatches_per_append_max": max(per_disp),
+         "carry_bytes": s.carry_nbytes(),
+         "checkpoint_wire_bytes": CK.wire_nbytes(wire),
+         "checkpoint_at_event": ck_at}
+    r["card_idle_share"] = 1 - r["card_ms"]["total"] / (
+        r["wall_ms"]["total_s"] * 1e3)
+    rec["v1"] = r
+    return s, wire, ck_at, out
+
+
+def _stream_invalid(rec, h_b):
+    """(v2): (b)'s INVALID mutation streamed the same way: it latches,
+    and later appends dispatch nothing."""
+    from comdb2_tpu_torch.stream import StreamSession
+
+    s = StreamSession("cas-register")
+    latched_at, after = None, 0
+    t0 = time.perf_counter()
+    for j, i in enumerate(range(0, len(h_b), STREAM_DELTA)):
+        d0 = s.dispatches
+        was = s.valid
+        out = s.append(h_b[i:i + STREAM_DELTA])
+        if was is not True:
+            _expect(s.dispatches == d0 and out.get("latched"),
+                    f"(v2) append {j} after the latch dispatched")
+            after += 1
+        elif out["valid"] is not True and latched_at is None:
+            latched_at = j
+    out = s.finalize_input()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ce = s.counterexample()
+    t_ce = time.perf_counter() - t0
+    rec["v2"] = {"verdict": {k: out.get(k) for k in (
+                     "valid", "op_index", "dispatches", "appends")},
+                 "latched_at_append": latched_at,
+                 "appends_after_latch": after, "wall_s": wall,
+                 "counterexample_s": t_ce}
+    return out, ce
+
+
+def _stream_overflow(rec, h_d):
+    """(v3): (d) in STREAM_D_DELTA-event appends: the kernel rung
+    overflows at 128, one replay re-routes the session to the xla rung,
+    which escalates in place."""
+    from comdb2_tpu_torch.stream import StreamSession
+
+    s = StreamSession("cas-register")
+    t0 = time.perf_counter()
+    for i in range(0, len(h_d), STREAM_D_DELTA):
+        s.append(h_d[i:i + STREAM_D_DELTA])
+    out = s.finalize_input()
+    rec["v3"] = {"verdict": {k: out.get(k) for k in (
+                     "valid", "op_index", "engine", "replays",
+                     "frontier_capacity", "dispatches", "final_count")},
+                 "engines_tried": out.get("engines_tried"),
+                 "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _stream_wide(rec, h_f):
+    """(v4): (f)'s P = 17 history through the MXU rung, escalating in
+    place up to 131072."""
+    from comdb2_tpu_torch.stream import StreamSession
+
+    ops = list(h_f.ops)                 # (f) is a PackedHistory
+    s = StreamSession("cas-register")
+    t0 = time.perf_counter()
+    for i in range(0, len(ops), 8):
+        s.append(ops[i:i + 8])
+    out = s.finalize_input()
+    rec["v4"] = {"verdict": {k: out.get(k) for k in (
+                     "valid", "engine", "replays", "frontier_capacity",
+                     "final_count", "dispatches")},
+                 "events": len(ops), "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def _beats(sessions, histories, step, timer=None, capture_beat=None):
+    """Advance ``sessions`` through ``histories`` in ``step``-event beats,
+    one MegaBatch per beat; per beat the device calls, and the beat's
+    wall. Returns the collectors' lane counts per beat."""
+    from comdb2_tpu_torch.stream import engine as TE
+
+    n = max(len(h) for h in histories)
+    calls, walls = [], []
+    for b, i in enumerate(range(0, n, step)):
+        if timer is not None:
+            timer.capture = b == capture_beat
+        coll = TE.MegaBatch()
+        d0 = TE.DISPATCHES
+        t0 = time.perf_counter()
+        fins = [s.append_stage(h[i:i + step], collector=coll)
+                for s, h in zip(sessions, histories)]
+        coll.flush()
+        for f in fins:
+            f()
+        walls.append(time.perf_counter() - t0)
+        calls.append((TE.DISPATCHES - d0, list(coll.lane_counts),
+                      coll.masked_lanes))
+    if timer is not None:
+        timer.capture = False
+    return calls, walls
+
+
+def _carry_equal(a, b) -> bool:
+    import torch
+
+    ea, eb = a.checkpoint()["eng"], b.checkpoint()["eng"]
+
+    def eq(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(eq(x[k], y[k]) for k in x)
+        if isinstance(x, (tuple, list)):
+            return len(x) == len(y) and all(map(eq, x, y))
+        if hasattr(x, "shape"):
+            return x.dtype == y.dtype and x.shape == y.shape \
+                and bool((x == y).all())
+        return x == y
+
+    del torch
+    return eq(ea, eb)
+
+
+def _stream_megabatch(rec, timer):
+    """(v5): 16 kernel-rung sessions of (i)'s keys in STREAM_BEAT-event
+    beats, one MegaBatch per beat; then 4 xla-rung and 4 mxu-rung lanes,
+    forced with ``engine=``; every lane against the same session solo."""
+    from comdb2_tpu_torch.ops import op as O
+    from comdb2_tpu_torch.ops.synth import (pinned_wide_history,
+                                             register_history)
+    from comdb2_tpu_torch.stream import StreamSession
+
+    per = []
+    for k in range(STREAM_LANES):
+        rng = random.Random(30_000 + k)
+        per.append(register_history(rng, n_procs=5, n_events=KEY_EVENTS,
+                                    values=5, p_info=0.0))
+    r = rec["v5"] = {}
+    out = {}
+    for label, engine, hs, step in (
+            ("kernel", "auto", per, STREAM_BEAT),
+            ("xla", "xla", [h[:STREAM_SIDE] for h in per[:4]],
+             STREAM_BEAT),
+            ("mxu", "mxu", None, 4)):
+        if label == "mxu":
+            # one wide prefix (pinned slots: P = 18), then the same
+            # two-beat tail on every lane, as the JAX package's
+            # megabatch test does — lanes of one shape class
+            wide = pinned_wide_history(18)
+            tail = [O.invoke(0, "write", 2), O.ok(0, "write", 2),
+                    O.invoke(1, "read", None), O.ok(1, "read", 2)] * 2
+            tails = [list(tail) for _ in range(4)]
+            hs = tails
+        fused = [StreamSession("cas-register", engine=engine) for _ in hs]
+        solo = [StreamSession("cas-register", engine=engine) for _ in hs]
+        if label == "mxu":
+            # the pinned prefix solo, then the beats fuse the tails
+            for s in fused + solo:
+                s.append(wide)
+        calls, walls = _beats(fused, hs, step, timer if label == "kernel"
+                              else None, capture_beat=8)
+        t0 = time.perf_counter()
+        for s, h in zip(solo, hs):
+            for i in range(0, len(h), step):
+                s.append(h[i:i + step])
+        t_solo = time.perf_counter() - t0
+        vf = [s.finalize_input() for s in fused]
+        vs = [s.finalize_input() for s in solo]
+        same = [a == b and _carry_equal(f, s)
+                for a, b, f, s in zip(vf, vs, fused, solo)]
+        r[label] = {"lanes": len(hs), "beats": len(calls),
+                    "calls_per_beat": sorted({c for c, _, _ in calls}),
+                    "lanes_per_call": calls[0][1],
+                    "masked_lanes": calls[0][2],
+                    "beat_wall_ms_median": _pct(walls, 0.5) * 1e3,
+                    "fused_wall_s": sum(walls), "solo_wall_s": t_solo,
+                    "rungs": sorted({v["engine"] for v in vf}),
+                    "verdicts": [v["valid"] for v in vf],
+                    "bit_equal_to_solo": all(same)}
+        out[label] = (calls, vf, same)
+    return out
+
+
+def _stream_workloads(rec):
+    """(v6): a bank session at (w)'s bank size and a sets session with
+    8000 elements, each with its planted twin, in deltas; and a 16-lane
+    bank megabatch against the same sessions solo."""
+    import torch
+
+    from comdb2_tpu_torch.checker import wl as W
+    from comdb2_tpu_torch.stream import wl as SW
+
+    bank, model = W.bank_batch(1, 1, n_accounts=8, n_transfers=512,
+                               n_reads=512)
+    sets = W.sets_batch(2, 1, n_adds=8000)
+    runs = {}
+    for fam, hs, step, twin in (("bank", bank, 256, "total"),
+                                ("sets", sets, 1000, "lost")):
+        for key, h in (("valid", hs[0]), (twin, _plant(fam, hs)[0])):
+            s = SW.make_session(f"wl-{fam}", model if fam == "bank"
+                                else None)
+            t0 = time.perf_counter()
+            for i in range(0, len(h), step):
+                s.append(h[i:i + step])
+            out = s.close()
+            runs[(fam, key)] = (h, out, model if fam == "bank" else None)
+            rec.setdefault("v6", {})[f"{fam} {key}"] = {
+                "ops": len(h), "valid": out["valid"],
+                "op_index": out["op_index"], "dispatches":
+                    out["dispatches"], "appends": out["appends"],
+                "wall_s": time.perf_counter() - t0,
+                **({"e_pad": out["e_pad"], "escalations":
+                    out["escalations"]} if fam == "sets" else {})}
+    hs16, model16 = W.bank_batch(4, STREAM_LANES, n_accounts=8,
+                                 n_transfers=512, n_reads=512)
+    fused = [SW.make_session("wl-bank", model16) for _ in hs16]
+    solo = [SW.make_session("wl-bank", model16) for _ in hs16]
+    calls, walls = _beats(fused, hs16, STREAM_BEAT)
+    for s, h in zip(solo, hs16):
+        for i in range(0, len(h), STREAM_BEAT):
+            s.append(h[i:i + STREAM_BEAT])
+    same = [a.poll() == b.poll() and torch.equal(a._balance, b._balance)
+            for a, b in zip(fused, solo)]
+    vf = [s.close() for s in fused]
+    for s in solo:
+        s.close()
+    rec["v6"]["bank megabatch"] = {
+        "lanes": len(hs16), "beats": len(calls),
+        "calls_per_beat": sorted({c for c, _, _ in calls}),
+        "beat_wall_ms_median": _pct(walls, 0.5) * 1e3,
+        "valid_lanes": sum(v["valid"] is True for v in vf),
+        "bit_equal_to_solo": all(same)}
+    return runs, (hs16, model16, vf, calls, same)
+
+
+def _stream_restore(rec, wire, ck_at, h_a, live, dev):
+    """(v7): (v1)'s 50% checkpoint, decoded from its wire form, restored
+    on the card and on the CPU; both finish (a)."""
+    from comdb2_tpu_torch.stream import StreamSession
+    from comdb2_tpu_torch.stream import checkpoint as CK
+
+    out = {}
+    for label, device in (("card", None), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        s = StreamSession.restore(CK.from_wire(wire), device=device)
+        for i in range(ck_at, len(h_a), STREAM_DELTA):
+            s.append(h_a[i:i + STREAM_DELTA])
+        v = s.finalize_input()
+        same = (v == live.poll()
+                and bool((s._eng.ws.cpu() == live._eng.ws.cpu()).all())
+                and bool((s._eng.stat.cpu() == live._eng.stat.cpu()).all()))
+        out[label] = same
+        rec.setdefault("v7", {})[label] = {
+            "wall_s": time.perf_counter() - t0, "equal_to_live": same,
+            "valid": v["valid"], "device": str(s.device)}
+    return out
+
+
+def _stream_follow(rec, h_e):
+    """(v8): (e)'s history written by a writer thread in 10 pieces, the
+    last line unterminated, read by ``filetest --follow``; then
+    ``filetest`` on the whole file."""
+    import ast
+    import contextlib
+    import io
+    import threading
+
+    from comdb2_tpu_torch import filetest
+    from comdb2_tpu_torch.ops.history import history_to_edn
+
+    d = tempfile.TemporaryDirectory(prefix="chip_smoke_follow_")
+    path = os.path.join(d.name, "live.edn")
+    open(path, "w").close()
+    lines = history_to_edn(h_e).splitlines()
+    step = -(-len(lines) // 10)
+
+    def writer():
+        for i in range(0, len(lines), step):
+            with open(path, "a") as fh:
+                text = "\n".join(lines[i:i + step])
+                fh.write(text if i + step >= len(lines) else text + "\n")
+            time.sleep(0.05)
+
+    th = threading.Thread(target=writer)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    th.start()
+    with contextlib.redirect_stdout(buf):
+        rc = filetest.main([path, "--follow", "--follow-idle", "1.0",
+                            "--follow-poll", "0.02"])
+    th.join()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    final = ast.literal_eval(text[text.rindex("\n{") + 1:].strip())
+    rc_whole = filetest.main([path])
+    d.cleanup()
+    rec["v8"] = {"exit": rc, "exit_whole_file": rc_whole,
+                 "final": final, "wall_s": wall,
+                 "appends": final.get("appends")}
+    return rc, rc_whole, final
+
+
+def _stream_path(dev, h_a, h_b, h_d, h_e, h_f):
+    """The sixth path: (v1)-(v8) on the card through the port's
+    streaming entry points; the launches' records for (v9)."""
+    rec: dict = {}
+    timer, syncs = _TimedLaunches(), _SyncCount()
+    timer.install()
+    syncs.install()
+    try:
+        t = time.perf_counter()
+        live, wire, ck_at, v1 = _stream_live(rec, timer, syncs, h_a)
+        n_v1 = len(timer.captured)
+        v2, ce = _stream_invalid(rec, h_b)
+        v3 = _stream_overflow(rec, h_d)
+        v4 = _stream_wide(rec, h_f)
+        mb = _stream_megabatch(rec, timer)
+        wl = _stream_workloads(rec)
+        v7 = _stream_restore(rec, wire, ck_at, h_a, live, dev)
+        v8 = _stream_follow(rec, h_e)
+        rec["wall_s"] = time.perf_counter() - t
+    finally:
+        syncs.uninstall()
+        timer.uninstall()
+    return rec, (timer.captured, n_v1), (live, v1, v2, ce, v3, v4, mb, wl,
+                                         v7, v8)
+
+
+def _stream_checks(rec, outs, a, b, d, f, h_a, h_e, dev):
+    """The sixth path's verdicts against their one-shot oracles (run
+    after the path's counts), its numbers printed, and the scratch
+    re-check curve: ``analysis`` of (a)'s prefix from scratch at 25, 50,
+    75 and 100%."""
+    import torch
+
+    from comdb2_tpu_torch.checker import analysis
+    from comdb2_tpu_torch.checker import wl as W
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.stream import engine as TE
+
+    live, v1, v2, ce, v3, v4, mb, wl, v7, v8 = outs
+    r1 = rec["v1"]
+    print(f"  v1: {r1['appends']} appends of {STREAM_DELTA} events: "
+          f"valid={v1['valid']!r} engine={v1['engine']} "
+          f"replays={v1['replays']} segments={v1['segments']}; per-append "
+          f"wall median {r1['wall_ms']['median']:.3f} ms, p99 "
+          f"{r1['wall_ms']['p99']:.3f} ms, first quarter "
+          f"{r1['wall_ms']['first_quarter_mean']:.3f} ms, last quarter "
+          f"{r1['wall_ms']['last_quarter_mean']:.3f} ms; card per append "
+          f"{r1['card_ms']['mean']:.4f} ms mean (first quarter "
+          f"{r1['card_ms']['first_quarter_mean']:.4f}, last "
+          f"{r1['card_ms']['last_quarter_mean']:.4f}; CUDA events around "
+          f"each launch); {r1['host_syncs_per_append']:.3f} host syncs "
+          f"per append (max {r1['host_syncs_max']}); {r1['dispatches']} "
+          f"dispatches (max {r1['dispatches_per_append_max']} per append); "
+          f"carry {r1['carry_bytes']} bytes; card idle "
+          f"{100 * r1['card_idle_share']:.2f}% of the appends' wall")
+    _expect(v1["valid"] is True and a.valid is True
+            and v1["final_count"] == a.final_count
+            and v1["engine"] == "kernel" and v1["replays"] == 0
+            and not r1["engines_tried"],
+            f"(v1) {r1['verdict']} differs from (a) (valid={a.valid!r}, "
+            f"n={a.final_count}) or left the kernel rung")
+    _expect(r1["dispatches_per_append_max"] == 1
+            and r1["host_syncs_max"] <= 2,
+            f"(v1) more than one launch or two host syncs per append: {r1}")
+    # the scratch curve: a from-scratch re-check of the prefix (one
+    # unrecorded call first, so no point pays the first call's costs)
+    analysis(cas_register(), h_a[:len(h_a) // 4])
+    curve = []
+    for pct in (25, 50, 75, 100):
+        n = len(h_a) * pct // 100
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = analysis(cas_register(), h_a[:n])
+        torch.cuda.synchronize()
+        curve.append({"percent": pct, "events": n, "valid": res.valid,
+                      "wall_ms": (time.perf_counter() - t0) * 1e3})
+    r1["scratch_recheck"] = curve
+    print("  v1 scratch re-check of the prefix (analysis from scratch): "
+          + ", ".join(f"{c['percent']}% {c['wall_ms']:.1f} ms"
+                      for c in curve)
+          + f" — against {r1['wall_ms']['median']:.3f} ms per append")
+    r2 = rec["v2"]
+    print(f"  v2: valid={v2['valid']!r} op_index={v2['op_index']} (b: "
+          f"{b.op_index}); latched at append {r2['latched_at_append']}, "
+          f"{r2['appends_after_latch']} appends after it dispatched "
+          f"nothing; counterexample {r2['counterexample_s']:.2f} s")
+    _expect(v2["valid"] is False and v2["op_index"] == b.op_index
+            and ce is not None and ce.op_index == b.op_index
+            and ce.configs == b.configs
+            and ce.paths == b.info.get("paths"),
+            f"(v2) {r2} or its counterexample differs from (b)'s")
+    r3 = rec["v3"]
+    print(f"  v3: {r3['verdict']} tried {r3['engines_tried']} "
+          f"wall {r3['wall_s']:.2f} s")
+    tried = r3["engines_tried"] or [{}]
+    _expect(v3["valid"] is d.valid is True and v3["engine"] == "xla"
+            and v3["replays"] == 1
+            and tried[0].get("engine") == "stream-kernel"
+            and tried[0].get("note") == "frontier overflow"
+            and v3["frontier_capacity"] > TE.STREAM_CAPACITIES[0],
+            f"(v3) not one kernel overflow, one replay and an in-place "
+            f"escalation to a VALID verdict: {r3}")
+    r4 = rec["v4"]
+    print(f"  v4: {r4['verdict']} ({r4['events']} events) wall "
+          f"{r4['wall_s']:.2f} s")
+    _expect(v4["valid"] is f.valid is True and v4["engine"] == "mxu"
+            and v4["frontier_capacity"] == 131072
+            and v4["final_count"] == f.final_count,
+            f"(v4) differs from (f): {r4}")
+    r5 = rec["v5"]
+    for label, (calls, vf, same) in mb.items():
+        print(f"  v5 {label}: {r5[label]}")
+        _expect(all(same), f"(v5) {label}: lanes "
+                f"{[i for i, s in enumerate(same) if not s]} differ from "
+                f"the same sessions run solo")
+        _expect(all(c == 1 for c, _, _ in calls),
+                f"(v5) {label}: calls per beat {[c for c, _, _ in calls]}")
+        _expect(r5[label]["rungs"] == [label],
+                f"(v5) {label}: lanes ran on {r5[label]['rungs']}")
+    _expect(r5["kernel"]["lanes_per_call"] == [STREAM_LANES],
+            f"(v5) the kernel lanes were not one call: {r5['kernel']}")
+    runs, (hs16, model16, vf16, calls16, same16) = wl
+    for (fam, key), (h, out, model) in runs.items():
+        want = W.check_wl_batch([h], fam, model, device=dev)[0]
+        _expect(out["valid"] == want["valid?"],
+                f"(v6) {fam} {key}: stream {out['valid']!r}, "
+                f"check_wl_batch {want['valid?']!r}")
+    want16 = W.check_wl_batch(hs16, "bank", model16, device=dev)
+    _expect(all(same16) and all(c == 1 for c, _, _ in calls16)
+            and [v["valid"] for v in vf16]
+            == [w["valid?"] for w in want16],
+            f"(v6) bank megabatch: {rec['v6']['bank megabatch']}")
+    _expect(rec["v6"]["sets valid"]["e_pad"] == 8192
+            and rec["v6"]["sets valid"]["escalations"] == 2,
+            f"(v6) sets did not climb to the 8192 rung in place: "
+            f"{rec['v6']['sets valid']}")
+    print(f"  v6: {rec['v6']}")
+    print(f"  v7: {rec['v7']}")
+    _expect(all(v7.values()), f"(v7) restored sessions differ from the "
+            f"live one: {rec['v7']}")
+    rc, rc_whole, final = v8
+    want_e = analysis(cas_register(), h_e)
+    print(f"  v8: filetest --follow exit {rc} ({final}), whole file "
+          f"exit {rc_whole}; wall {rec['v8']['wall_s']:.2f} s")
+    _expect(rc == rc_whole and final["valid"] == want_e.valid
+            and (want_e.valid is True
+                 or final["op_index"] == want_e.op_index),
+            f"(v8) --follow exit {rc} / {final} differ from the whole "
+            f"file's exit {rc_whole} and analysis ({want_e.valid!r}, "
+            f"{want_e.op_index})")
+
+
+def _stream_parity(captured, n_v1):
+    """(v9): every captured launch — the first STREAM_PARITY appends of
+    (v1), then each lane of one fused (v5) beat — against the plain
+    version on the same card tensors: ``ws_out`` and ``stat_out`` bit
+    for bit. Returns (max abs error, launches compared, plain ms)."""
+    import torch
+
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+
+    err, t0 = 0, time.perf_counter()
+    for k, ((seg, off, stride, ws, stat, table, spec), (ws_k, st_k)) \
+            in enumerate(captured):
+        status, fail, n, ws_p = SK.seg_search_reference(
+            seg, off, stride, ws, stat, table, spec)
+        st_p = [status, fail, n, int(stat[3])]
+        bad = (not torch.equal(ws_p, ws_k)) or st_p != st_k.tolist()
+        if bad:
+            where = "v1" if k < n_v1 else "v5"
+            raise _Failed(f"(v9) {where} launch {k}: kernel "
+                          f"{st_k.tolist()} vs plain {st_p}, frontier "
+                          f"{'equal' if torch.equal(ws_p, ws_k) else 'differs'}")
+        err = max(err, int((ws_p.long() - ws_k.long()).abs().max()))
+    return err, len(captured), (time.perf_counter() - t0) * 1e3
+
+
 def main() -> int:
     try:
         import torch
@@ -2000,6 +2685,7 @@ def main() -> int:
     from comdb2_tpu_torch.ops.history import history_to_edn
     from comdb2_tpu_torch.ops.packed import pack_history
     from comdb2_tpu_torch.ops.synth import mutate, register_history
+    from comdb2_tpu_torch.stream import engine as TE
     from comdb2_tpu_torch.txn import closure_torch as TCL
     from comdb2_tpu_torch.utils import next_pow2, queued_ms
 
@@ -2051,12 +2737,15 @@ def main() -> int:
     def zero_counts():
         SK.LAUNCHES = SK.STREAM_LAUNCHES = PSORT.LAUNCHES = 0
         TCL.DISPATCHES = WB.DISPATCHES = 0
+        TE.DISPATCHES = TE.MEGABATCHES = 0
 
     def counts():
         return {"seg_search": SK.LAUNCHES,
                 "seg_search[stream]": SK.STREAM_LAUNCHES,
                 "pair_sort": PSORT.LAUNCHES,
-                "closure_diag": TCL.DISPATCHES, "wl_check": WB.DISPATCHES}
+                "closure_diag": TCL.DISPATCHES, "wl_check": WB.DISPATCHES,
+                "stream_dispatch": TE.DISPATCHES,
+                "stream_megabatch": TE.MEGABATCHES}
 
     # --- path 1: single-history analysis, counted ---------------------------
     results = {}
@@ -2384,6 +3073,28 @@ def main() -> int:
         return _fail(f"the shrink path launched no stream kernel or "
                      f"closure: {path_counts}")
 
+    # --- path 6: streaming sessions, counted ------------------------------
+    print("stream: (v1) live appends of (a), (v2) its INVALID twin, (v3) "
+          "overflow and replay, (v4) wide P, (v5) megabatch, (v6) workload "
+          "sessions, (v7) checkpoint and restore, (v8) filetest --follow")
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        stream_rec, stream_cap, stream_out = _stream_path(
+            dev, h_a, h_b, h_d, h_e, h_f)
+        path_counts["stream"] = counts()
+        print(f"LAUNCHES (stream path): {path_counts['stream']}")
+        _stream_checks(stream_rec, stream_out, a, b, d, f, h_a, h_e, dev)
+    except _Failed as e:
+        return _fail(str(e))
+    del stream_out
+    print(f"  (path 6 took {time.perf_counter() - t0:.1f} s, "
+          f"{stream_rec['wall_s']:.1f} s of it the counted requests)")
+    if not (path_counts["stream"]["seg_search"] > 0
+            and path_counts["stream"]["stream_megabatch"] > 0):
+        return _fail(f"the stream path launched no segment-search kernel "
+                     f"or no megabatch: {path_counts}")
+
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
           "segments (head from the initial carry; tail ending at the "
@@ -2402,6 +3113,18 @@ def main() -> int:
             _, err = _deep_window(mm, packed, dev, results["c"])
             max_err = max(max_err, err)
     max_err = max(max_err, _rare_paths(dev, results))
+    try:
+        err_v9, n_v9, plain_v9 = _stream_parity(*stream_cap)
+    except _Failed as e:
+        return _fail(str(e))
+    del stream_cap
+    max_err = max(max_err, err_v9)
+    stream_rec["v9"] = {"launches": n_v9, "v1_launches": STREAM_PARITY,
+                        "plain_ms": plain_v9, "max_abs_err": err_v9}
+    print(f"  v9: {n_v9} stream-path launches (the first {STREAM_PARITY} "
+          f"appends of (v1), each lane of one fused (v5) beat) bit-equal "
+          f"to seg_search_reference on the same card tensors (plain "
+          f"version {plain_v9:.1f} ms for all)")
     tier = results["d"]["parity"]["spec"]
     if (tier["rows"], tier["n_words"]) != (16, 3):
         return _fail(f"(d) did not run the 16-row, 3-word tier: {tier}")
@@ -2417,7 +3140,10 @@ def main() -> int:
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "parity": "bit-equal (status, fail, n, frontier)",
-        "measured_on": f"request (a), segments [0, {WINDOW})"}]
+        "measured_on": f"request (a), segments [0, {WINDOW})",
+        "stream_path": {"parity_launches": stream_rec["v9"]["launches"],
+                        "card_ms_per_append":
+                            stream_rec["v1"]["card_ms"]["mean"]}}]
 
     # stream mode, at the main path's own launch shapes: (h)'s whole
     # launch, two of (g)'s group streams together at (g)'s layout, and
@@ -2754,6 +3480,7 @@ def main() -> int:
         json.dump({"gpu": gpu, "requests": results, "batches": batch_res,
                    "checker_layer": checker_rec,
                    "last_batch_engines": escal_rec, "shrink": shrink_rec,
+                   "stream": stream_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

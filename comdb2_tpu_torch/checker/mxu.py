@@ -30,7 +30,11 @@ This engine takes them:
 ``check_device_mxu_chunk`` share one B-general core; the single-history
 forms are B = 1. The carry lives on the engine's device:
 ``(words, valid, n[B], status[B], fail[B])``. Each closure iteration
-reads one flag back to the host.
+reads one flag back to the host. ``check_device_mxu_megabatch`` advances
+B streaming sessions' B = 1 carries in one call (each lane owns its
+successor table, so the lanes run one after another through the same
+core: bit-equal to B chunk calls). ``DISPATCHES`` counts calls of the
+four entries.
 """
 
 from __future__ import annotations
@@ -64,6 +68,9 @@ CAPACITIES = (1024, 8192, 131072)
 
 #: segments per call on the chunked driver path
 CHUNK = 1024
+
+#: calls of the public entries this process (a megabatch is one)
+DISPATCHES = 0
 
 # the exactness argument needs fp32 accumulation of the bf16 products
 # (process-wide, see the module docstring)
@@ -369,6 +376,8 @@ def check_device_mxu_batch(succ, inv_proc, inv_tr, ok_proc, depth, *,
     """The batched engine: seg arrays ``inv_proc``/``inv_tr`` (S, B, K),
     ``ok_proc`` (S, B), ``depth`` (S,); returns per-batch
     ``(status[B], fail_segment[B], n_final[B])`` tensors."""
+    global DISPATCHES
+    DISPATCHES += 1
     dev = engine_device(succ, device)
     succ = as_tensor(succ, dev)
     carry = init_carry(B, F, P, n_states, n_transitions, dev)
@@ -389,6 +398,8 @@ def check_device_mxu(succ, inv_proc, inv_tr, ok_proc, depth, *, F: int,
                      device=None):
     """Single-history form: seg arrays as ``check_device_seg2`` takes
     them; returns ``(status, fail_segment, n_final)`` as ints."""
+    global DISPATCHES
+    DISPATCHES += 1
     dev = engine_device(succ, device)
     succ = as_tensor(succ, dev)
     carry = init_carry(1, F, P, n_states, n_transitions, dev)
@@ -405,14 +416,49 @@ def check_device_mxu_chunk(succ, inv_proc, inv_tr, ok_proc, depth,
     """One chunk of the single-history search (B=1 carry from
     :func:`init_carry` / :func:`expand_carry`); ``seg_offset`` biases
     the recorded fail segment. Returns the updated carry."""
+    global DISPATCHES
+    DISPATCHES += 1
     dev = engine_device(succ, device)
     return _scan(as_tensor(succ, dev), _single(inv_proc, True),
                  _single(inv_tr, True), _single(ok_proc, False), depth,
                  carry, int(seg_offset), 1, F, P, n_states, n_transitions)
 
 
-__all__ = ["CAPACITIES", "CHUNK", "MAX_P", "MIN_P", "S_CAP",
+def check_device_mxu_megabatch(succs, inv_proc, inv_tr, ok_proc, depth,
+                               seg_offset, carries, *, F, P, n_states,
+                               n_transitions, device=None):
+    """B streaming-session lanes of :func:`check_device_mxu_chunk` in
+    one call: ``succs`` and ``carries`` are B-tuples (each session owns
+    its memo table and B=1 carry), the delta arrays are lane-major
+    ``(B, S, K)`` / ``(B, S)`` (``depth`` too: each lane has its own) or
+    lists of per-lane arrays, ``seg_offset`` is ``(B,)``. The batched
+    core takes one table, so the lanes run one after another through
+    it: every returned carry is the one :func:`check_device_mxu_chunk`
+    returns for that lane, bit for bit — and ``F``, ``P``, ``n_states``
+    and ``n_transitions`` may be per-lane lists. Returns a B-tuple of
+    carries."""
+    global DISPATCHES
+    DISPATCHES += 1
+
+    def lane(x, b):
+        return x[b] if isinstance(x, (list, tuple)) else x
+
+    offs = np.asarray(seg_offset).tolist()
+    out = []
+    for b, carry in enumerate(carries):
+        dev = engine_device(succs[b], device)
+        out.append(_scan(as_tensor(succs[b], dev),
+                         _single(inv_proc[b], True),
+                         _single(inv_tr[b], True),
+                         _single(ok_proc[b], False), depth[b], carry,
+                         int(offs[b]), 1, lane(F, b), lane(P, b),
+                         lane(n_states, b), lane(n_transitions, b)))
+    return tuple(out)
+
+
+__all__ = ["CAPACITIES", "CHUNK", "DISPATCHES", "MAX_P", "MIN_P", "S_CAP",
            "T_CAP", "bucket_F", "check_device_mxu",
-           "check_device_mxu_batch", "check_device_mxu_chunk", "enabled",
+           "check_device_mxu_batch", "check_device_mxu_chunk",
+           "check_device_mxu_megabatch", "enabled",
            "expand_carry", "fits", "init_carry", "pending_histogram",
            "serves"]

@@ -45,7 +45,7 @@ one warp each, G = SMs x warp-streams per SM (:func:`stream_dispatch`).
 Host half (same key layout as the JAX package, so frontiers decode
 identically): :class:`SegKernelSpec`, :func:`spec_for`,
 :func:`pack_table`, :func:`pack_segments`, :func:`initial_frontier`,
-:func:`decode_frontier`, :func:`pack_stream`, :func:`plan_stream_slices`,
+:func:`decode_frontier`, :func:`encode_frontier`, :func:`pack_stream`, :func:`plan_stream_slices`,
 :func:`merge_stream_slice`, :func:`plan_groups`. The plain PyTorch
 version is :func:`seg_search_reference`; :func:`seg_search` and
 :func:`seg_search_stream` run it only for CPU tensors and launch the
@@ -216,6 +216,33 @@ def decode_frontier(spec: SegKernelSpec, ws, P: int):
     for lane in np.flatnonzero(ws[-1] < SENT_HI):
         out.add((int(state[lane]),
                  tuple(int(slots[q][lane]) - 2 for q in range(nq))))
+    return out
+
+
+def encode_frontier(spec: SegKernelSpec, configs) -> np.ndarray:
+    """The inverse of :func:`decode_frontier`: host configs ``(state,
+    slots)`` (LIN=-2 / IDLE=-1 / tr; slots past ``len(slots)`` IDLE) as
+    an int32[n_words, 128] frontier under ``spec``, live lanes in
+    ascending key order (most significant word last) and the sentinel
+    after — the layout the kernel reads and writes. At most 128
+    configs."""
+    keys = []
+    for state, slots in configs:
+        words = _root_key(spec)
+        w, sh = spec.state_pos
+        words[w] |= int(state) << sh
+        for q, t in enumerate(slots):
+            w, sh = spec.slot_pos[q]
+            words[w] += (int(t) + 1) << sh      # IDLE (1) -> t + 2
+        keys.append(words)
+    if len(keys) > LANES:
+        raise ValueError(f"{len(keys)} configs exceed the frontier's "
+                         f"{LANES} lanes")
+    keys.sort(key=lambda ws: ws[::-1])
+    out = np.full((spec.n_words, LANES), SENT_LO, np.int32)
+    out[-1, :] = SENT_HI
+    for lane, words in enumerate(keys):
+        out[:, lane] = words
     return out
 
 

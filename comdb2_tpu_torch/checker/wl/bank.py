@@ -43,8 +43,10 @@ reads, 513 snapshots, 128 accounts) — so the port matches the
 snapshots in blocks of at most ``SNAP_BLOCK`` compared elements
 (64 Mi bools, whatever the rungs).
 
-Not ported yet: the stream rungs' delta forms (``wl_bank_delta``,
-``wl_bank_delta_mb``); they go with streaming.
+The stream rung's delta forms (``wl_bank_delta``, ``wl_bank_delta_mb``)
+advance a live session's (A,) running-balance carry by one append:
+the solo form is the lane-batched body at B = 1, so a megabatched
+advance is bit-identical to the solo one.
 """
 
 from __future__ import annotations
@@ -178,6 +180,71 @@ def wl_bank_check(reads, read_mask, wrong_n, init, transfers, total, *,
     return (~bad.any(1), wrong_total, snap_bad, first_true(bad), sums)
 
 
+def _bank_delta_lanes(balance, reads, read_mask, wrong_n, transfers,
+                      total):
+    """B lanes' bank deltas against their running-balance carries
+    (``balance`` (B, A), ``total`` (B,)): the one body of the solo and
+    the megabatched form. Snapshot depth counts from the carry:
+    ``S_0 = balance`` (the pre-delta state is a legal read),
+    ``S_t = balance + cumsum(transfers)[t-1]``. Returns ``(new_balance
+    (B, A), any_bad (B,), first_bad (B,), n_bad (B,), n_snap_bad
+    (B,))``."""
+    snaps = torch.cat(
+        [torch.zeros_like(transfers[:, :1]),
+         torch.cumsum(transfers, 1, dtype=torch.int32)],
+        dim=1) + balance[:, None, :]                        # (B,T+1,A)
+    sums = reads.sum(2, dtype=torch.int32)                      # (B,R)
+    wrong_total = read_mask & ~wrong_n & (sums != total[:, None])
+    bad = read_mask & (wrong_n | wrong_total)
+    seen = (reads[:, :, None, :] == snaps[:, None, :, :]).all(3).any(2)
+    snap_bad = read_mask & ~wrong_n & ~seen
+    return (snaps[:, -1], bad.any(1), first_true(bad),
+            bad.sum(1, dtype=torch.int32),
+            snap_bad.sum(1, dtype=torch.int32))
+
+
+def _check_delta_shapes(reads, transfers, lead, n_reads, n_accounts,
+                        n_snaps) -> None:
+    if tuple(reads.shape) != lead + (n_reads, n_accounts) \
+            or tuple(transfers.shape) != lead + (n_snaps, n_accounts):
+        raise ValueError(f"bank delta planes {tuple(reads.shape)} / "
+                         f"{tuple(transfers.shape)} are not the declared "
+                         f"({n_reads}, {n_snaps}, {n_accounts})")
+
+
+def wl_bank_delta(balance, reads, read_mask, wrong_n, transfers, total,
+                  *, n_reads: int, n_accounts: int, n_snaps: int):
+    """Stream-rung solo advance, O(delta): the carry is the (A,)
+    running balance (a tensor), the delta planes are this append's
+    reads and transfer rows padded up ``WL_DELTA_PADS``, on the
+    carry's device. Returns ``(new_balance, any_bad, first_bad,
+    n_bad, n_snap_bad)`` on the device."""
+    _check_delta_shapes(reads, transfers, (), n_reads, n_accounts,
+                        n_snaps)
+    total = torch.as_tensor(total, dtype=torch.int32,
+                            device=balance.device).reshape(1)
+    out = _bank_delta_lanes(balance[None], reads[None], read_mask[None],
+                            wrong_n[None], transfers[None], total)
+    return tuple(o[0] for o in out)
+
+
+def wl_bank_delta_mb(balances, reads, read_mask, wrong_n, transfers,
+                     totals, *, n_reads: int, n_accounts: int,
+                     n_snaps: int):
+    """Megabatched advance: ``balances`` is a TUPLE of per-lane carry
+    tensors, the delta planes carry a lane axis, ``totals`` is (B,).
+    One batched pass of the solo form's body: every lane's outputs are
+    bit-identical to its solo advance. Returns one output tuple per
+    lane."""
+    bal = torch.stack(tuple(balances))
+    _check_delta_shapes(reads, transfers, (bal.shape[0],), n_reads,
+                        n_accounts, n_snaps)
+    outs = _bank_delta_lanes(bal, reads, read_mask, wrong_n, transfers,
+                             totals)
+    return tuple(tuple(o[i] for o in outs)
+                 for i in range(len(balances)))
+
+
 def bank_verdicts(cols: BankColumns, out) -> List[dict]:
     """Decode one device readback into per-history oracle-shaped
     verdict dicts (the ``bad-reads`` taxonomy of
@@ -208,4 +275,5 @@ def bank_verdicts(cols: BankColumns, out) -> List[dict]:
 
 
 __all__ = ["BankColumns", "DEVICE_FIELDS", "bank_verdicts",
-           "default_init", "encode_bank", "first_true", "wl_bank_check"]
+           "default_init", "encode_bank", "first_true", "wl_bank_check",
+           "wl_bank_delta", "wl_bank_delta_mb"]

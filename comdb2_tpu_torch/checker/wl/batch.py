@@ -15,9 +15,8 @@ the device; no device error is ever answered from the host.
 
 Entry points take ``device=``: ``None`` means ``cuda`` and raises
 without a card; ``"cpu"`` runs the same torch ops on CPU tensors.
-
-Not ported yet: the delta pads of the stream rungs (``WL_DELTA_PADS``),
-which go with streaming.
+``WL_DELTA_PADS`` are the stream rungs' per-append row pads
+(:mod:`...stream.wl`).
 """
 
 from __future__ import annotations
@@ -48,6 +47,9 @@ WL_ELEMS = (128, 1024, 8192)
 WL_NODES = (4, 16)
 #: dirty distinct-value universe width
 WL_VALUES = (128, 1024, 8192)
+#: stream-rung per-APPEND row pads (bank delta reads / transfers) —
+#: an append past the top rung dispatches in sequential solo chunks
+WL_DELTA_PADS = (8, 64)
 
 #: device calls of the wl programs (one per pow2 bucket — tests and
 #: ``chip_smoke.py`` assert against this)
@@ -257,6 +259,6 @@ def wl_dims(histories, family: str,
 
 
 __all__ = ["DISPATCHES", "FAMILIES", "WL_ACCOUNTS", "WL_BATCH",
-           "WL_ELEMS", "WL_NODES", "WL_READS", "WL_SNAPS", "WL_VALUES",
+           "WL_DELTA_PADS", "WL_ELEMS", "WL_NODES", "WL_READS", "WL_SNAPS", "WL_VALUES",
            "agrees_with_oracle", "bucket_of", "check_wl_batch",
            "stage_wl_batch", "wl_dims"]

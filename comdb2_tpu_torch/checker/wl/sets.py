@@ -20,8 +20,10 @@ A history with no ok read answers UNKNOWN ("Set was never read") on
 the host side, mirroring the oracle — its lane still rides the
 device call (masked out) so the batch stays one call.
 
-Not ported yet: the stream rungs' delta forms (``wl_sets_delta``,
-``wl_sets_delta_mb``); they go with streaming.
+The stream rung's delta forms (``wl_sets_delta``, ``wl_sets_delta_mb``)
+advance a live session's three (E,) membership planes by one append;
+the solo form is the lane-batched body at B = 1, so a megabatched
+advance is bit-identical to the solo one.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 #: fields of :class:`SetsColumns` that :func:`wl_sets_check` takes, in
 #: its argument order
@@ -104,6 +107,65 @@ def wl_sets_check(attempts, adds, final_read, has_read, *,
     return (valid, ok, lost, unexpected, recovered)
 
 
+def _sets_delta_lanes(attempts, adds, final_read, attempts_d, adds_d,
+                      read_d, has_read_d, has_read):
+    """B lanes' sets deltas against their bitmap-plane carries (all
+    planes (B, E), flags (B,)): the one body of the solo and the
+    megabatched form. ``has_read_d`` (this delta read) and
+    ``has_read`` (union INCLUDING this delta) are host-computed — an
+    empty-set read is still a read, so presence can't be inferred from
+    ``read_d``. A read REPLACES ``final_read`` (last-read-wins, as the
+    one-shot encoder), which is why the sets verdict is only
+    provisional until close."""
+    att = attempts | attempts_d
+    add = adds | adds_d
+    fr = torch.where(has_read_d[:, None], read_d, final_read)
+    lost = add & ~fr
+    unexpected = fr & ~att
+    valid_now = has_read & ~(lost | unexpected).any(1)
+    return (att, add, fr, valid_now, lost.sum(1, dtype=torch.int32),
+            unexpected.sum(1, dtype=torch.int32))
+
+
+def _flag(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.bool, device=device).reshape(-1)
+
+
+def wl_sets_delta(attempts, adds, final_read, attempts_d, adds_d,
+                  read_d, has_read_d, has_read, *, n_elems: int):
+    """Stream-rung solo advance, O(delta): the carry is the three (E,)
+    membership planes at the session's ``WL_ELEMS`` rung (tensors on
+    one device). Returns ``(attempts, adds, final_read, valid_now,
+    n_lost, n_unexpected)`` on the device."""
+    if tuple(attempts.shape) != (n_elems,):
+        raise ValueError(f"sets planes {tuple(attempts.shape)} are not "
+                         f"the declared width {n_elems}")
+    dev = attempts.device
+    out = _sets_delta_lanes(attempts[None], adds[None], final_read[None],
+                            attempts_d[None], adds_d[None], read_d[None],
+                            _flag(has_read_d, dev), _flag(has_read, dev))
+    return tuple(o[0] for o in out)
+
+
+def wl_sets_delta_mb(carries, attempts_d, adds_d, read_d, has_read_d,
+                     has_read, *, n_elems: int):
+    """Megabatched advance: ``carries`` is a TUPLE of per-lane
+    ``(attempts, adds, final_read)`` tensor triples; the delta planes
+    carry a lane axis. One batched pass of the solo form's body —
+    bit-identical per lane. Returns one output tuple per lane."""
+    att = torch.stack([c[0] for c in carries])
+    add = torch.stack([c[1] for c in carries])
+    fr = torch.stack([c[2] for c in carries])
+    if tuple(att.shape) != (len(carries), n_elems):
+        raise ValueError(f"sets planes {tuple(att.shape)} are not the "
+                         f"declared width {n_elems}")
+    dev = att.device
+    outs = _sets_delta_lanes(att, add, fr, attempts_d, adds_d, read_d,
+                             _flag(has_read_d, dev), _flag(has_read, dev))
+    return tuple(tuple(o[i] for o in outs)
+                 for i in range(len(carries)))
+
+
 def sets_verdicts(cols: SetsColumns, out) -> List[dict]:
     """Decode to the oracle's result shape — same interval-set strings
     and fractions as :class:`~..checkers.SetChecker`, bit-identical on
@@ -141,4 +203,5 @@ def sets_verdicts(cols: SetsColumns, out) -> List[dict]:
 
 
 __all__ = ["DEVICE_FIELDS", "SetsColumns", "encode_sets",
-           "sets_verdicts", "wl_sets_check"]
+           "sets_verdicts", "wl_sets_check", "wl_sets_delta",
+           "wl_sets_delta_mb"]

@@ -1,11 +1,12 @@
 """Carry the JAX package's host arrays into the port's tensors.
 
 The counterpart of carrying weights across: a memoized successor
-table, a segment stream, a kernel frontier, a txn dependency graph and
-a workload family's encoded columns made by the JAX package (or
-anything shaped like them — duck typing, no import of that package)
-become the port's objects on a given device, so one set of numpy
-inputs can be fed to both packages and their outputs compared.
+table, a segment stream, a kernel frontier, a txn dependency graph, a
+workload family's encoded columns and a streaming session's checkpoint
+made by the JAX package (or anything shaped like them — duck typing,
+no import of that package) become the port's objects on a given
+device, so one set of numpy inputs can be fed to both packages and
+their outputs compared, and a live session can move between them.
 """
 
 from __future__ import annotations
@@ -65,6 +66,41 @@ def frontier_words(ws, device=None) -> torch.Tensor:
     rows = [np.asarray(w, np.int32) for w in ws]
     rows = [w[0] if w.ndim == 2 else w for w in rows]
     return torch.from_numpy(np.stack(rows)).to(resolve_device(device))
+
+
+def session_checkpoint(ck, device=None) -> dict:
+    """A JAX package stream-session checkpoint — its host dict, or
+    that dict's wire form — as the port's, for
+    ``StreamSession.restore`` / ``SessionManager.open_restored``.
+
+    The ingest, segmenter, memo log and the xla, MXU and workload
+    carries agree in layout and pass through. The kernel rung's carry
+    does not: the JAX package's ``ws`` is ``n_words`` arrays of (rows,
+    128) (the frontier in row 0), its ``stat`` (1, 128) and its ``res``
+    (8, 128); the port's are int32[n_words, 128] (through
+    :func:`frontier_words`, then re-encoded with the live lanes in the
+    ascending key order the kernel's searches need), int32[4] and
+    nothing. Those come out as tensors on ``device``."""
+    from .checker import seg_kernel as SK
+    from .stream.checkpoint import from_wire
+    from .stream.engine import kernel_spec
+
+    out = from_wire(ck)
+    eng = out.get("eng")
+    if eng is not None and eng.get("rung") == "kernel":
+        eng = dict(eng)
+        spec = kernel_spec(int(eng["ns"]), int(eng["nt"]), int(out["P2"]),
+                           int(eng["K"]))
+        cfgs = SK.decode_frontier(spec, frontier_words(eng["ws"], "cpu"),
+                                  spec.P)
+        eng["ws"] = torch.from_numpy(SK.encode_frontier(spec, cfgs)).to(
+            resolve_device(device))
+        eng["stat"] = torch.from_numpy(
+            np.array(eng["stat"], np.int32).reshape(-1)[:4].copy()).to(
+                resolve_device(device))
+        eng.pop("res", None)
+        out = dict(out, eng=eng)
+    return out
 
 
 def txn_planes(graph_or_adj, device=None) -> torch.Tensor:

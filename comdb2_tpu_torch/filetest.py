@@ -24,8 +24,14 @@ arg names the reader), the checker's own spans (for ``linear``:
 ``minimal.edn``, ``results.edn`` and the re-rendered ``shrink.svg``
 under ``--store``; the exit code stays the seed verdict's.
 
-Not ported yet: ``--service`` and ``--follow``; they wait for the
-serving and streaming slices.
+``--follow`` tails a growing map-per-line history file through a
+:class:`~.stream.StreamSession` on the same device, printing each
+append's progress and every verdict transition; it exits when the
+verdict latches, or after ``--follow-idle`` seconds without new bytes
+(then the tail settles, an unterminated last line included, and the
+final verdict is a one-shot check's).
+
+Not ported yet: ``--service``; it waits for the serving slice.
 """
 
 from __future__ import annotations
@@ -92,6 +98,20 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="write a Chrome/Perfetto trace-event JSON of "
                         "this run (parse / pack / device / finalize "
                         "stage spans)")
+    p.add_argument("--follow", action="store_true",
+                   help="tail mode: poll the file for appended EDN ops "
+                        "(map-per-line) and feed them through a local "
+                        "StreamSession, printing verdict transitions. "
+                        "Exits when the verdict latches or the file goes "
+                        "idle for --follow-idle seconds (then the tail "
+                        "settles and the final verdict is the one-shot "
+                        "check's)")
+    p.add_argument("--follow-poll", type=float, default=0.2,
+                   metavar="S", help="tail poll interval (s)")
+    p.add_argument("--follow-idle", type=float, default=5.0,
+                   metavar="S",
+                   help="finalize after this long without new bytes "
+                        "(0 = follow forever)")
     args = p.parse_args(argv)
     if args.txn:
         args.checker = "txn"
@@ -116,6 +136,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 def _run(args) -> int:
     """The checker run proper (``main`` owns argument parsing and the
     trace export, which happens on every exit path)."""
+    if args.follow:
+        if args.checker not in ("linear",):
+            print("--follow supports the linear checker only",
+                  file=sys.stderr)
+            return 3
+        return _run_follow(args)
     with obs_trace.span("filetest.parse", path=args.history) as sp:
         with open(args.history) as fh:
             parsed: dict = {}
@@ -182,6 +208,94 @@ def _run(args) -> int:
     if valid is True:
         return 0
     if valid == "unknown":
+        return 2
+    return 1
+
+
+def _run_follow(args) -> int:
+    """Tail mode: incremental byte-offset reads of a map-per-line EDN
+    history, each batch of complete new lines fed as one delta to a
+    local :class:`~.stream.StreamSession` on ``--device`` (keyed
+    histories re-wrapped PER DELTA — the values carry no type tag).
+    Prints a line per verdict TRANSITION plus a progress line per
+    append; the idle timeout settles the tail and exits with the
+    standard verdict code."""
+    import time
+
+    from .obs.trace import monotonic as mono
+    from .ops.history import parse_history
+    from .stream import StreamSession
+
+    keyed = args.keyed or args.model == "cas-register-comdb2"
+    s = StreamSession(args.model, device=args.device)
+    pos = 0
+    buf = ""
+    last_valid = True
+    last_bytes = mono()
+
+    def parse(text):
+        ops = parse_history(text)
+        if keyed:
+            from .ops.kv import wrap_keyed_history
+
+            ops = wrap_keyed_history(ops)
+        return ops
+
+    def transition(out) -> None:
+        nonlocal last_valid
+        if out["valid"] != last_valid:
+            print(f"verdict: {last_valid!r} -> {out['valid']!r} at "
+                  f"op {out['op_index']} "
+                  f"(checked_through={out['checked_through']})",
+                  flush=True)
+            last_valid = out["valid"]
+
+    while True:
+        try:
+            with open(args.history) as fh:
+                fh.seek(pos)
+                chunk = fh.read()
+                pos = fh.tell()
+        except FileNotFoundError:
+            chunk = ""
+        if chunk:
+            buf += chunk
+            lines, _, buf = buf.rpartition("\n")
+            if lines.strip():
+                ops = parse(lines)
+                out = s.append(ops)
+                print(f"append: +{len(ops)} ops -> valid="
+                      f"{out['valid']!r} checked_through="
+                      f"{out['checked_through']}/{out['op_count']} "
+                      f"engine={out['engine']} "
+                      f"dispatches={out['dispatches']}", flush=True)
+                transition(out)
+                if out["valid"] is not True:
+                    break
+            last_bytes = mono()
+        elif args.follow_idle > 0 and \
+                mono() - last_bytes >= args.follow_idle:
+            break
+        else:
+            time.sleep(max(args.follow_poll, 0.01))
+    if buf.strip() and s.valid is True:
+        # a final line without a trailing newline (the writer died or
+        # never terminated the file) is still part of the history —
+        # the idle timeout decided the stream ended, so feed it before
+        # the final settle
+        transition(s.append(parse(buf)))
+    out = s.finalize_input()
+    transition(out)
+    pprint.pprint({k: out[k] for k in
+                   ("valid", "op_index", "op_count",
+                    "checked_through", "segments", "engine",
+                    "dispatches", "appends", "replays")
+                   if k in out}
+                  | ({"cause": out["cause"]} if "cause" in out
+                     else {}))
+    if out["valid"] is True:
+        return 0
+    if out["valid"] == "unknown":
         return 2
     return 1
 

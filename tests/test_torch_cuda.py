@@ -565,3 +565,64 @@ def test_check_txn_on_the_card_on_the_g2_fixture(cuda):
     assert got == check_txn(h, backend="host")
     assert got["valid?"] is False
     assert got["counterexample"]["class"] == "G2-item"
+
+
+# --- streaming sessions ----------------------------------------------------------
+
+def _stream_feed(session, h, step):
+    outs = [session.append(h[i:i + step]) for i in range(0, len(h), step)]
+    return outs, session.finalize_input()
+
+
+def test_stream_kernel_rung_on_the_card_matches_cpu(cuda):
+    """A kernel-rung session on the card (``seg_search.cu`` in carry
+    mode, one launch per delta) and its twin on CPU tensors (the plain
+    version) agree after every append, frontier words and stat bits
+    included."""
+    from comdb2_tpu_torch.stream import StreamSession
+    from comdb2_tpu_torch.stream import engine as TE
+
+    h = mutate(random.Random(8), register_history(
+        random.Random(8), n_procs=5, n_events=600, values=5,
+        p_info=0.0), values=5)
+    card = StreamSession(engine="kernel")
+    host = StreamSession(engine="kernel", device="cpu")
+    before = SK.LAUNCHES
+    for i in range(0, len(h), 40):
+        d0 = TE.DISPATCHES
+        oc, oh = card.append(h[i:i + 40]), host.append(h[i:i + 40])
+        assert oc == oh
+        if card.valid is True and card.replays == 0:
+            assert TE.DISPATCHES - d0 <= 2          # one per session
+            assert torch.equal(card._eng.ws.cpu(), host._eng.ws)
+            assert torch.equal(card._eng.stat.cpu(), host._eng.stat)
+    assert card.finalize_input() == host.finalize_input()
+    assert SK.LAUNCHES > before
+    assert card._eng.ws.is_cuda
+
+
+def test_stream_fused_beat_on_the_card_matches_solo(cuda):
+    """One fused kernel-rung beat of 5 sessions on the card (5 launches,
+    one readback) leaves each carry bit-equal to the same session run
+    solo on the card."""
+    from comdb2_tpu_torch.stream import StreamSession
+    from comdb2_tpu_torch.stream import engine as TE
+
+    hs = [register_history(random.Random(900 + i), n_procs=5,
+                           n_events=400, values=5, p_info=0.0)
+          for i in range(5)]
+    fused = [StreamSession(engine="kernel") for _ in hs]
+    solo = [StreamSession(engine="kernel") for _ in hs]
+    for s, t, h in zip(fused, solo, hs):
+        s.append(h[:200])
+        t.append(h[:200])
+    coll = TE.MegaBatch()
+    fins = [s.append_stage(h[200:], collector=coll)
+            for s, h in zip(fused, hs)]
+    coll.flush()
+    outs = [f() for f in fins]
+    for t, h, o in zip(solo, hs, outs):
+        assert t.append(h[200:]) == o
+    for s, t in zip(fused, solo):
+        assert torch.equal(s._eng.ws, t._eng.ws)
+        assert torch.equal(s._eng.stat, t._eng.stat)

@@ -23,6 +23,11 @@ SHRINK_SLICE = ("shrink", "shrink.core", "shrink.verdicts", "shrink.txn",
                 "harness", "harness.store", "report", "report.svg",
                 "report.linear_svg", "report.txn_svg", "report.shrink_svg")
 
+#: the streaming slice's subpackage and modules
+STREAM_SLICE = ("stream", "stream.engine", "stream.session",
+                "stream.ingest", "stream.segment", "stream.checkpoint",
+                "stream.wl", "stream.manager")
+
 
 def _forbidden(name: str) -> bool:
     return (name in ("jax", "comdb2_tpu")
@@ -48,7 +53,7 @@ def test_package_has_the_slice_modules():
               "checker.wl.batch", "checker.wl.synth", "txn.edges",
               "txn.scc", "txn.closure_torch", "txn.counterexample",
               "txn.check", "txn.adapters", "checker.brute",
-              "ops.native_loader") + SHRINK_SLICE:
+              "ops.native_loader") + SHRINK_SLICE + STREAM_SLICE:
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -70,16 +75,19 @@ def test_import_pulls_in_no_jax_in_a_fresh_interpreter():
         "             if n.startswith(('comdb2_tpu_torch.shrink',\n"
         "                              'comdb2_tpu_torch.harness',\n"
         "                              'comdb2_tpu_torch.report'))))\n"
+        "print(sorted(n[len('comdb2_tpu_torch.'):] for n in sys.modules\n"
+        "             if n.startswith('comdb2_tpu_torch.stream')))\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                        env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    n_loaded, bad, slice_mods = r.stdout.strip().splitlines()
+    n_loaded, bad, slice_mods, stream_mods = r.stdout.strip().splitlines()
     assert int(n_loaded) >= 20
     assert bad == "[]"
     assert sorted(SHRINK_SLICE) == eval(slice_mods)
+    assert sorted(STREAM_SLICE) == eval(stream_mods)
 
 
 def test_no_module_imports_jax_or_the_jax_package():
@@ -87,6 +95,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     scanned = {str(p.relative_to(PKG).with_suffix("")).replace("/", ".")
                .replace(".__init__", "") for p in PKG.rglob("*.py")}
     assert set(SHRINK_SLICE) <= scanned
+    assert set(STREAM_SLICE) <= scanned
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
