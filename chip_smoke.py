@@ -997,6 +997,8 @@ def _wl_requests(dev, rec):
         t0 = time.perf_counter()
         valid_hs, model = gen()
         t_gen = time.perf_counter() - t0
+        if fam == "bank":
+            _W_BANK.update(hs=valid_hs, model=model)
         for viol in (None, twin):
             t0 = time.perf_counter()
             hs = valid_hs if viol is None else _plant(fam, valid_hs)
@@ -1096,7 +1098,7 @@ def _independent_request(dev, rec):
     import torch
 
     from comdb2_tpu_torch.checker import analysis
-    from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.utils import compile_guard as CG
     from comdb2_tpu_torch.checker.checkers import Linearizable
     from comdb2_tpu_torch.checker.independent import IndependentChecker
     from comdb2_tpu_torch.models.model import cas_register
@@ -1104,14 +1106,14 @@ def _independent_request(dev, rec):
     t0 = time.perf_counter()
     per, keyed = _i_histories()
     t_gen = time.perf_counter() - t0
-    s0 = SK.STREAM_LAUNCHES
+    s0 = CG.LAUNCHES["seg_search_stream"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r = IndependentChecker(Linearizable(device=dev)).check(
         {}, cas_register(), keyed)
     wall = time.perf_counter() - t0
-    stream = SK.STREAM_LAUNCHES - s0
-    l0 = SK.LAUNCHES
+    stream = CG.LAUNCHES["seg_search_stream"] - s0
+    l0 = CG.LAUNCHES["seg_search"]
     mismatched = []
     for k in range(KEYS):
         a = analysis(cas_register(), per[k], device=dev)
@@ -1123,7 +1125,7 @@ def _independent_request(dev, rec):
                      if v.get("backend") == "device-batch")
     rec["i"] = {"keys": KEYS, "events_per_key": KEY_EVENTS,
                 "generate_s": t_gen, "wall_s": wall, "stream_launches": stream,
-                "comparison_launches": SK.LAUNCHES - l0,
+                "comparison_launches": CG.LAUNCHES["seg_search"] - l0,
                 "valid": r["valid?"], "failures": r["failures"],
                 "device_batch_keys": batch_keys, "mismatched": mismatched}
     print(f"  i: {KEYS} keys x {KEY_EVENTS} events, valid={r['valid?']!r}, "
@@ -1723,6 +1725,7 @@ def _shrink_linear(dev, rec, label, n_events):
     Prints the wall, the stream launches, their card
     time and the host split per round."""
     from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.utils import compile_guard as CG
     from comdb2_tpu_torch.report.shrink_svg import render_minimal
     from comdb2_tpu_torch.shrink import minimize
 
@@ -1731,12 +1734,12 @@ def _shrink_linear(dev, rec, label, n_events):
         t0 = time.perf_counter()
         h, truth = register_seed(n_events, kind)
         t_gen = time.perf_counter() - t0
-        s0 = SK.STREAM_LAUNCHES
+        s0 = CG.LAUNCHES["seg_search_stream"]
         r, wall, spans, card = _traced_run(
             lambda: minimize(h, checker="linear", model="cas-register",
                              F=SHRINK_F, engine="auto", device=dev),
             [_CardTimer(SK, "seg_search_stream")])
-        launches = SK.STREAM_LAUNCHES - s0
+        launches = CG.LAUNCHES["seg_search_stream"] - s0
         rounds = _rounds_split(spans, card)
         t0 = time.perf_counter()
         cert = _certified(r.ops)
@@ -2656,6 +2659,581 @@ def _stream_parity(captured, n_v1):
     return err, len(captured), (time.perf_counter() - t0) * 1e3
 
 
+# --- path 7: the verifier service -------------------------------------------
+
+SV_REQUESTS = 256         # (sv1): check requests in the burst
+SV_CONNS = 64             # (sv1): client connections sending them
+SV_CAP = 64               # (sv1): the daemon's --batch-cap
+SV_CORE = 64              # (sv3): histories through the in-process core
+SV_WL = 64                # (sv2): bank lanes (and as many total twins)
+SV_APPENDS = 64           # (sv2): (a)'s appends of STREAM_DELTA events
+SV_READY_S = 300.0        # the daemon's ready line (it builds and primes)
+
+#: (w)'s bank lanes, kept for (sv2)
+_W_BANK: dict = {}
+
+
+def _start_daemon(*args, env=None):
+    """``python -m comdb2_tpu_torch.service`` from this checkout; returns
+    ``(proc, ready)``, ``ready`` None when it exited without a ready
+    line. The caller stops and reaps ``proc`` (``_stop_daemon``)."""
+    import select
+
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    err = open(os.path.join(HERE, "chiprun_out", "service_daemon.err"),
+               "a")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "comdb2_tpu_torch.service", "--port", "0",
+         *args], cwd=HERE, stdout=subprocess.PIPE, stderr=err, text=True,
+        env=env)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], SV_READY_S)
+    line = proc.stdout.readline() if ready else ""
+    if not line.strip():
+        return proc, None
+    return proc, json.loads(line)
+
+
+def _stop_daemon(proc, port=None):
+    """Ask the daemon to shut down, then wait on it (terminate, kill)."""
+    if port is not None and proc.poll() is None:
+        try:
+            from comdb2_tpu_torch.service.client import ServiceClient
+
+            with ServiceClient("127.0.0.1", port, retries=0) as c:
+                c.shutdown()
+        except (OSError, ValueError):
+            pass
+    for stop in (None, proc.terminate, proc.kill):
+        if stop is not None and proc.poll() is None:
+            stop()
+        try:
+            proc.wait(timeout=60)
+            break
+        except subprocess.TimeoutExpired:
+            continue
+    if proc.stdout is not None:
+        proc.stdout.close()
+
+
+def _scrape(port):
+    """(kernel launches by kernel, nvcc builds, status) from the
+    daemon's ``metrics`` and ``status`` verbs."""
+    from comdb2_tpu_torch.service.client import ServiceClient
+
+    with ServiceClient("127.0.0.1", port) as c:
+        m = c.metrics()["metrics"]
+        st = c.status()["status"]
+    launches = {s["labels"]["kernel"]: s["value"]
+                for s in m["compile_kernel_launches_total"]["series"]}
+    builds = m["compile_kernel_builds_total"]["series"][0]["value"]
+    return launches, builds, st
+
+
+def _sv_burst(port, hs, want, rec):
+    """(sv1): SV_REQUESTS check requests from SV_CONNS connections at
+    once; each reply against the direct ``check_batch`` verdict."""
+    import threading
+
+    from comdb2_tpu_torch.ops.history import history_to_edn
+    from comdb2_tpu_torch.service import protocol
+    from comdb2_tpu_torch.service.client import ServiceClient
+
+    texts = [history_to_edn(h) for h in hs]
+    replies = [None] * len(hs)
+    rtt = [0.0] * len(hs)
+    errors = []
+    barrier = threading.Barrier(SV_CONNS)
+
+    def client(c_i):
+        try:
+            with ServiceClient("127.0.0.1", port, timeout_s=300.0) as c:
+                c.ping()
+                barrier.wait(timeout=120)
+                for i in range(c_i, len(hs), SV_CONNS):
+                    t0 = time.perf_counter()
+                    replies[i] = c.check(texts[i], raise_on_error=False)
+                    rtt[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:                  # noqa: BLE001
+            errors.append(f"connection {c_i}: {type(e).__name__}: {e}")
+
+    l0, b0, st0 = _scrape(port)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SV_CONNS)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    l1, b1, st1 = _scrape(port)
+    _expect(not errors and all(r is not None for r in replies),
+            f"(sv1) burst failed: {errors[:3]}")
+    st_w, fa_w, _ = want
+    bad = [i for i, r in enumerate(replies)
+           if not r.get("ok")
+           or r.get("valid") != protocol.verdict(st_w[i])
+           or r.get("op_index") != int(fa_w[i])]
+    stages = {s: [r["stages"][s] for r in replies]
+              for s in ("queue_wait_ms", "host_pack_ms", "device_ms",
+                        "finalize_ms")}
+    lat = [r["latency_ms"] for r in replies]
+    stage_sum = sum(r["stages"]["device_ms"] / r["batched"]
+                    for r in replies)
+    busy = st1["kernels"]["card_ms"] - st0["kernels"]["card_ms"]
+    d_disp = st1["dispatches"] - st0["dispatches"]
+    reasons = {k: st1[f"launch_{k}"] - st0[f"launch_{k}"]
+               for k in ("full", "deadline", "idle")}
+    launches = {k: l1.get(k, 0) - l0.get(k, 0) for k in l1}
+    rec["sv1"] = {
+        "requests": len(hs), "connections": SV_CONNS, "wall_s": wall,
+        "mismatched": bad, "invalid": sum(r["valid"] is False
+                                          for r in replies),
+        "latency_ms": {"p50": _pct(lat, 0.5), "p99": _pct(lat, 0.99)},
+        "client_rtt_ms": {"p50": _pct(rtt, 0.5), "p99": _pct(rtt, 0.99)},
+        "stage_ms": {s: {"p50": _pct(v, 0.5), "p99": _pct(v, 0.99)}
+                     for s, v in stages.items()},
+        "dispatches": d_disp, "requests_per_dispatch": len(hs) / max(
+            d_disp, 1), "launch_reasons": reasons,
+        "kernel_launches": launches, "kernel_builds": b1 - b0,
+        "ring_polled": st1["ring_polled"] - st0["ring_polled"],
+        "card_busy_ms": busy, "card_busy_share": busy / (wall * 1e3),
+        "device_stage_sum_over_wall": stage_sum / (wall * 1e3),
+        "requests_per_s": len(hs) / wall}
+    r = rec["sv1"]
+    print(f"  sv1 burst: {len(hs)} check requests from {SV_CONNS} "
+          f"connections in {wall:.3f} s ({r['requests_per_s']:.1f} req/s); "
+          f"{r['invalid']} INVALID; "
+          f"{'every reply equals' if not bad else f'replies {bad[:8]} differ from'} "
+          f"the direct check_batch verdict and fail index")
+    print(f"  sv1 latency (admission to reply) p50 {r['latency_ms']['p50']:.1f}"
+          f" ms, p99 {r['latency_ms']['p99']:.1f} ms; client round trip p50 "
+          f"{r['client_rtt_ms']['p50']:.1f} ms, p99 "
+          f"{r['client_rtt_ms']['p99']:.1f} ms")
+    print("  sv1 stages p50 / p99 (ms): " + "; ".join(
+        f"{s.replace('_ms', '')} {v['p50']:.2f} / {v['p99']:.2f}"
+        for s, v in r["stage_ms"].items()))
+    print(f"  sv1 dispatches {d_disp}, {r['requests_per_dispatch']:.1f} "
+          f"requests per dispatch, {r['ring_polled']} of them finished "
+          f"when their event polled done; launch reasons {reasons}; kernel "
+          f"launches {launches}, nvcc builds {b1 - b0} (the daemon's "
+          f"compile-guard counters, scraped)")
+    print(f"  sv1 the card busy {busy:.3f} ms of the {wall * 1e3:.1f} ms "
+          f"wall, share {r['card_busy_share']:.5f} (the daemon's CUDA "
+          f"events around each launch, scraped); device stages summed per "
+          f"dispatch over the wall {r['device_stage_sum_over_wall']:.3f} "
+          f"(a stage spans launch to observed readback, ring residence "
+          f"included, so overlapping stages count twice: not a share)")
+    _expect(not bad, f"(sv1) replies differ from the direct call: {bad}")
+    _expect(launches.get("seg_search_stream", 0) > 0,
+            f"(sv1) the burst launched no stream kernel: {launches}")
+    _expect(busy > 0, f"(sv1) the daemon timed no card time: {busy} ms")
+    return launches
+
+
+def _sv_mixed(port, ref, rec):
+    """(sv2): a txn request (t2's base with G1c), (w)'s bank lanes and
+    their total twins, a stream session of (a)'s first appends, a
+    shrink of the stale-read fixture, and (h)'s overflowing lanes as
+    check requests, on the same daemon; each reply against the direct
+    call."""
+    from comdb2_tpu_torch.ops.history import history_to_edn
+    from comdb2_tpu_torch.service import protocol
+    from comdb2_tpu_torch.service.client import ServiceClient
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    def check_one(h):
+        with ServiceClient("127.0.0.1", port, timeout_s=600.0) as c1:
+            return c1.check(history_to_edn(h), raise_on_error=False)
+
+    out = {}
+    with ServiceClient("127.0.0.1", port, timeout_s=600.0) as c:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(ref["over_hs"])) as ex:
+            got = list(ex.map(check_one, ref["over_hs"]))
+        st_o, fa_o, _ = ref["over"]
+        bad = [i for i, r in enumerate(got)
+               if r.get("valid") != protocol.verdict(st_o[i])
+               or r.get("op_index") != int(fa_o[i])]
+        out["overflow"] = {"requests": len(got),
+                           "wall_s": time.perf_counter() - t0,
+                           "valid": [r.get("valid") for r in got],
+                           "mismatched": bad}
+        _expect(not bad, f"(sv2) overflowing check replies differ from the "
+                         f"direct call: {bad}, {out['overflow']}")
+        t0 = time.perf_counter()
+        r = c.check(history_to_edn(ref["txn_h"]), txn=True,
+                    raise_on_error=False)
+        want = ref["txn"]
+        out["txn"] = {"wall_s": time.perf_counter() - t0,
+                      "valid": r.get("valid"),
+                      "class": r.get("anomaly_class"),
+                      "cycle_len": r.get("cycle_len"),
+                      "engine": r.get("engine"), "bucket": r.get("bucket")}
+        _expect(r.get("valid") is want["valid?"] is False
+                and r.get("anomaly_class") == want["counterexample"][
+                    "class"] == "G1c"
+                and r.get("cycle_len") == len(want["counterexample"][
+                    "cycle"]), f"(sv2) txn reply {r} != direct {want}")
+        t0 = time.perf_counter()
+        got = [c.check_wl(history_to_edn(h), "bank", wl=ref["bank_model"],
+                          raise_on_error=False) for h in ref["bank_hs"]]
+        wl_wall = time.perf_counter() - t0
+        bad = [i for i, (g, w) in enumerate(zip(got, ref["bank"]))
+               if g.get("valid") != w["valid?"]]
+        out["wl"] = {"lanes": len(got), "wall_s": wl_wall,
+                     "invalid": sum(g.get("valid") is False for g in got),
+                     "engines": sorted({g.get("engine") for g in got}),
+                     "mismatched": bad}
+        _expect(not bad and out["wl"]["invalid"] == len(got) // 2,
+                f"(sv2) bank replies differ from the direct call: {bad}, "
+                f"{out['wl']}")
+        t0 = time.perf_counter()
+        sid = c.stream_open()["session"]
+        verdicts = [c.stream_append(sid, history_to_edn(d)).get("valid")
+                    for d in ref["deltas"]]
+        closed = c.stream_close(sid)
+        out["stream"] = {"appends": len(verdicts),
+                         "wall_s": time.perf_counter() - t0,
+                         "valid": closed.get("valid"),
+                         "final_count": closed.get("final_count")}
+        _expect(verdicts == ref["stream_verdicts"]
+                and closed.get("valid") == ref["stream_close"]["valid"]
+                and closed.get("final_count") == ref["stream_close"].get(
+                    "final_count"),
+                f"(sv2) stream replies differ from the direct session: "
+                f"{verdicts[-3:]} {closed}")
+        t0 = time.perf_counter()
+        sr = c.shrink(ref["shrink_text"], raise_on_error=False)
+        want = ref["shrink"]
+        out["shrink"] = {"wall_s": time.perf_counter() - t0,
+                         "valid": sr.get("valid"),
+                         "seed_ops": sr.get("seed_ops"),
+                         "minimal_ops": sr.get("minimal_ops"),
+                         "rounds": sr.get("rounds")}
+        _expect(sr.get("valid") is want.valid is False
+                and sr.get("minimal_ops") == want.n_ops
+                and sr.get("one_minimal") is True,
+                f"(sv2) shrink reply {out['shrink']} != direct "
+                f"({want.n_ops} ops)")
+    rec["sv2"] = out
+    print(f"  sv2 overflow: {len(ref['over_hs'])} 8-process check requests "
+          f"past the kernel's 128 configs, sent at once, "
+          f"{out['overflow']['wall_s']:.2f} s, verdicts "
+          f"{out['overflow']['valid']}")
+    print(f"  sv2 txn: {len(ref['txn_h']) // 2} txns + G1c -> "
+          f"{out['txn']['class']}, cycle of {out['txn']['cycle_len']}, "
+          f"bucket {out['txn']['bucket']}, {out['txn']['wall_s']:.3f} s; "
+          f"wl bank: {out['wl']['lanes']} lanes ({out['wl']['invalid']} "
+          f"total twins INVALID) in {wl_wall:.2f} s; stream: "
+          f"{len(verdicts)} appends of {STREAM_DELTA} events, close "
+          f"valid={out['stream']['valid']!r} in "
+          f"{out['stream']['wall_s']:.2f} s; shrink: "
+          f"{out['shrink']['seed_ops']} -> {out['shrink']['minimal_ops']} "
+          f"ops in {out['shrink']['rounds']} rounds, "
+          f"{out['shrink']['wall_s']:.2f} s; every reply equals the direct "
+          f"call")
+
+
+def _sv_core(dev, hs, want, rec):
+    """(sv3): ``VerifierCore(device="cuda")`` in this process: SV_CORE of
+    (sv1)'s histories, one ``tick``; the stream launch it made is
+    captured, and group streams of it are held bit-equal to the plain
+    version (and to the same groups within the launch)."""
+    import torch
+
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.utils import compile_guard as CG
+    from comdb2_tpu_torch.obs import trace as obs
+    from comdb2_tpu_torch.ops.history import history_to_edn
+    from comdb2_tpu_torch.service import VerifierCore, protocol
+
+    real = SK.seg_search_stream
+    captured = []
+
+    events = []
+
+    def capturing(seg, stride, table, spec, n_hist, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = real(seg, stride, table, spec, n_hist, **kw)
+        e1.record()
+        events.append((e0, e1))
+        captured.append((seg, stride, table, spec, n_hist, res))
+        return res
+
+    core = VerifierCore(device=dev, batch_cap=SV_CORE)
+    SK.seg_search_stream = capturing
+    try:
+        for i in range(SV_CORE):
+            core.submit({"op": "check", "id": i,
+                         "history": history_to_edn(hs[i])},
+                        obs.monotonic())
+        t0 = time.perf_counter()
+        done = core.tick()
+        wall = time.perf_counter() - t0
+    finally:
+        SK.seg_search_stream = real
+    replies = {r["id"]: r for _, r in done}
+    torch.cuda.synchronize()
+    card_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+    # the stage returns while its launch still runs: no readback in it
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.models.model import cas_register
+
+    probe = TB.pack_batch(hs[:SV_CORE], cas_register())
+    TB._stream_segments(probe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fin = TB.check_batch_async(probe, F=1024, device=dev)
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    busy = not torch.cuda.current_stream(dev).query()
+    t0 = time.perf_counter()
+    fin()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  sv3 check_batch_async on {SV_CORE} cached histories: stage "
+          f"{stage_ms:.2f} ms, the card {'still busy' if busy else 'IDLE'} "
+          f"when it returned; finalize waited {wait_ms:.2f} ms")
+    _expect(busy or dev.type != "cuda",
+            "(sv3) check_batch_async's stage waited for its launch")
+    st_w, fa_w, _ = want
+    bad = [i for i in range(SV_CORE)
+           if replies[i].get("valid") != protocol.verdict(st_w[i])
+           or replies[i].get("op_index") != int(fa_w[i])]
+    _expect(not bad and captured and core.m["engine_errors"] == 0,
+            f"(sv3) core replies differ: {bad}, {len(captured)} launches, "
+            f"{core.m['engine_errors']} engine errors")
+    # the plain version on two group streams of the first captured
+    # launch: the longest, and the first whose results hold an INVALID
+    # history
+    seg, stride, table, spec, n_hist, res = captured[0]
+    rows = (seg[:, :, 0] != -1).sum(1)
+    inv = (res[:, :, 0] == SK.INVALID).any(1).nonzero().flatten().tolist()
+    pick = sorted({int(rows.argmax())} | set(inv[:1]))
+    ws0 = torch.from_numpy(SK.initial_frontier(spec)).to(dev)
+    st0 = torch.from_numpy(SK._init_stat()).to(dev)
+    t0 = time.perf_counter()
+    err = 0
+    # the comparison launches below are not counted
+    counted = CG.LAUNCHES["seg_search_stream"]
+    for g in pick:
+        want_g = torch.zeros_like(res[g])
+        SK.seg_search_reference(seg[g], 0, stride, ws0, st0, table, spec,
+                                results=want_g)
+        alone = real(seg[g:g + 1].contiguous(), stride, table, spec,
+                     n_hist)[0]
+        err = max(err, int((res[g].long() - want_g.long()).abs().max()),
+                  int((alone.long() - want_g.long()).abs().max()))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    CG.LAUNCHES["seg_search_stream"] = counted
+    rec["sv3"] = {"requests": SV_CORE, "tick_s": wall,
+                  "launches": len(captured), "card_ms": card_ms,
+                  "card_share": card_ms / (wall * 1e3),
+                  "groups": int(seg.shape[0]), "rows": int(seg.shape[1]),
+                  "checked_groups": pick, "max_abs_err": err,
+                  "plain_ms": plain_ms,
+                  "stage_ms": core.status()["stage_ms"],
+                  "async": {"stage_ms": stage_ms, "busy_after_stage": busy,
+                            "finalize_wait_ms": wait_ms}}
+    print(f"  sv3 VerifierCore(device='cuda'): {SV_CORE} requests, one tick "
+          f"{wall:.3f} s, the card {card_ms:.3f} ms of it (CUDA events "
+          f"around the launches: {card_ms / (wall * 1e3):.4f} of the "
+          f"tick), {len(captured)} seg_search[stream] launch "
+          f"({seg.shape[0]} streams x {seg.shape[1]} rows); group streams "
+          f"{pick} {'bit-equal' if err == 0 else f'max diff {err}'} to "
+          f"seg_search_reference and to themselves launched alone (plain "
+          f"version {plain_ms:.1f} ms)")
+    _expect(err == 0, "(sv3) the service's stream launch differs from its "
+                      "plain version")
+    return err, len(captured)
+
+
+def _sv_mesh(dev, batch, want, rec):
+    """(sv4): (i)'s keys through ``check_batch(mesh=make_mesh(1))``, equal
+    to the run without a mesh; D = 2 where the host has two cards."""
+    import numpy as np
+    import torch
+
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.service.sharding import make_mesh
+
+    out = {}
+    for D in (1, 2):
+        if D > torch.cuda.device_count():
+            print(f"  sv4 mesh D>1: not run on the card "
+                  f"({torch.cuda.device_count()} device)")
+            out[f"D{D}"] = "not run (one device)"
+            continue
+        info: dict = {}
+        t0 = time.perf_counter()
+        got = TB.check_batch(batch, F=1024, mesh=make_mesh(D, dev.type),
+                             info=info)
+        wall = time.perf_counter() - t0
+        same = all(np.array_equal(a, b) for a, b in zip(got[:2], want[:2]))
+        out[f"D{D}"] = {"engine": info["engine"], "wall_s": wall,
+                        "equal": same, "batch": info["batch"]}
+        print(f"  sv4 check_batch(mesh=make_mesh({D})): {len(batch)} keys, "
+              f"engine {info['engine']}, {wall:.3f} s; verdicts and fail "
+              f"indices {'equal' if same else 'DIFFERENT from'} the run "
+              f"without a mesh")
+        _expect(same, f"(sv4) mesh D={D} differs from the run without one")
+    rec["sv4"] = out
+
+
+def _sv_filetest(port, h_e, rec):
+    """(sv5): ``filetest --service`` against the daemon."""
+    import contextlib
+    import io
+
+    from comdb2_tpu_torch import filetest
+    from comdb2_tpu_torch.ops.history import history_to_edn
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_sv5_")
+    edn_path = os.path.join(tmp.name, "e.edn")
+    with open(edn_path, "w") as fh:
+        fh.write(history_to_edn(h_e))
+    out = {}
+    for label, args, want in (
+            ("e", [edn_path], 1),
+            ("clean", [os.path.join(HERE, "tests", "fixtures", "txn",
+                                    "clean.edn"), "--checker", "txn"], 0)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = filetest.main([*args, "--service", f"127.0.0.1:{port}"])
+        out[label] = rc
+        _expect(rc == want, f"(sv5) filetest --service on {label} exited "
+                            f"{rc}, want {want}")
+    tmp.cleanup()
+    rec["sv5"] = out
+    print(f"  sv5 filetest --service: (e) exits {out['e']}, "
+          f"txn/clean.edn exits {out['clean']}")
+
+
+def _sv_no_fallback(rec):
+    """(sv6): a daemon asked for the card on a host that shows none
+    exits non-zero before any ready line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc, ready = _start_daemon("--backend", "cuda", env=env)
+    try:
+        proc.wait(timeout=120)
+    finally:
+        _stop_daemon(proc)
+    rec["sv6"] = {"ready": ready, "returncode": proc.returncode}
+    print(f"  sv6 --backend cuda with CUDA_VISIBLE_DEVICES='': "
+          f"{'no ready line' if ready is None else 'READY'}, exit code "
+          f"{proc.returncode}")
+    _expect(ready is None and proc.returncode not in (0, None),
+            f"(sv6) the card-less daemon did not fail at startup: "
+            f"{rec['sv6']}")
+
+
+def _sv_references(dev, h_a):
+    """The direct calls every (sv) reply is held against, made before the
+    path's counted run: check_batch on (i)'s keys, check_txn on (t2)'s
+    base with G1c, check_wl_batch on (w)'s bank lanes and twins, a
+    StreamSession over (a)'s first appends, minimize on the stale-read
+    fixture."""
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.checker import wl as W
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.native_loader import parse_history_fast
+    from comdb2_tpu_torch.ops.synth import (list_append_history,
+                                             register_history,
+                                             txn_anomaly_history)
+    from comdb2_tpu_torch.shrink import minimize
+    from comdb2_tpu_torch.stream import StreamSession
+    from comdb2_tpu_torch.txn import check_txn
+
+    ref = {}
+    t0 = time.perf_counter()
+    ref["hs"], _ = _i_histories()
+    ref["batch"] = TB.pack_batch(ref["hs"], cas_register())
+    ref["want"] = TB.check_batch(ref["batch"], F=1024, device=dev)
+    # (h)'s eight 8-process lanes: they overflow the kernel's 128
+    # configs and escalate through the keys engine (the pair sort)
+    ref["over_hs"] = [register_history(
+        random.Random(seed), n_procs=8, n_events=400, values=5,
+        p_info=0.0, max_pending=8) for seed in (0, 1, 3, 4, 5, 7, 8, 10)]
+    ref["over"] = TB.check_batch(TB.pack_batch(ref["over_hs"],
+                                               cas_register()),
+                                 F=1024, device=dev)
+    base = list_append_history(random.Random(2048), n_procs=16,
+                               n_txns=TXN_COUNT, n_keys=64, max_micro=4)
+    ref["txn_h"] = base + _fresh(txn_anomaly_history("g1c"), 10_000)
+    ref["txn"] = check_txn(ref["txn_h"], device=dev)
+    if _W_BANK:
+        valid = _W_BANK["hs"][:SV_WL]
+        model = _W_BANK["model"]
+    else:
+        valid, model = W.bank_batch(1, SV_WL, n_accounts=8,
+                                    n_transfers=512, n_reads=512)
+    ref["bank_hs"] = list(valid) + _plant("bank", valid)
+    ref["bank_model"] = model
+    ref["bank"] = W.check_wl_batch(ref["bank_hs"], "bank", model,
+                                   device=dev)
+    ref["deltas"] = [h_a[i:i + STREAM_DELTA] for i in
+                     range(0, SV_APPENDS * STREAM_DELTA, STREAM_DELTA)]
+    s = StreamSession("cas-register", device=dev)
+    ref["stream_verdicts"] = [s.append(d)["valid"] for d in ref["deltas"]]
+    ref["stream_close"] = s.close()
+    with open(os.path.join(HERE, "tests", "fixtures", "shrink",
+                           "stale_read.edn")) as fh:
+        ref["shrink_text"] = fh.read()
+    ref["shrink"] = minimize(parse_history_fast(ref["shrink_text"]),
+                             model="cas-register", F=1024, device=dev)
+    print(f"  (direct calls for the comparisons: "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return ref
+
+
+def _service_path(dev, h_a, h_e, zero_counts, counts):
+    """Path 7: the daemon on the card, (sv1)-(sv6). Returns ``(rec,
+    launches)``: the path's counts, this process's plus the daemon's
+    (scraped from its compile-guard counters over the path)."""
+    ref = _sv_references(dev, h_a)
+    rec: dict = {}
+    zero_counts()
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    proc, ready = _start_daemon("--backend", "cuda", "--batch-cap",
+                                str(SV_CAP))
+    port = None if ready is None else ready["port"]
+    try:
+        _expect(ready is not None and ready["backend"] == dev.type,
+                f"the daemon did not start on the card: {ready}")
+        rec["ready_s"] = time.perf_counter() - t0
+        rec["ready"] = ready
+        print(f"  daemon ready in {rec['ready_s']:.1f} s on "
+              f"{ready['device']}, {ready['primed']} priming dispatches")
+        l0, _, _ = _scrape(port)
+        _sv_burst(port, ref["hs"], ref["want"], rec)
+        _sv_mixed(port, ref, rec)
+        _sv_filetest(port, h_e, rec)
+        l1, b1, st = _scrape(port)
+        rec["daemon_status"] = st
+        _expect(st["engine_errors"] == 0,
+                f"the daemon answered {st['engine_errors']} engine errors")
+    finally:
+        _stop_daemon(proc, port)
+    rec["daemon_exit"] = proc.returncode
+    _sv_core(dev, ref["hs"], ref["want"], rec)
+    _sv_mesh(dev, ref["batch"], ref["want"], rec)
+    here = counts()
+    daemon = {k: l1.get(k, 0) - l0.get(k, 0) for k in l1}
+    launches = dict(here)
+    for name, key in (("seg_search", "seg_search"),
+                      ("seg_search[stream]", "seg_search_stream"),
+                      ("pair_sort", "pair_sort")):
+        launches[name] = here[name] + daemon.get(key, 0)
+    rec["launches"] = {"daemon": daemon, "this_process": here}
+    _sv_no_fallback(rec)
+    rec["wall_s"] = time.perf_counter() - t_path
+    return rec, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2677,6 +3255,7 @@ def main() -> int:
     from comdb2_tpu_torch.checker import linear_torch as LT
     from comdb2_tpu_torch.checker import pair_sort as PSORT
     from comdb2_tpu_torch.checker import seg_kernel as SK
+    from comdb2_tpu_torch.utils import compile_guard as CG
     from comdb2_tpu_torch.checker.wl import batch as WB
     from comdb2_tpu_torch.kernels import build
     from comdb2_tpu_torch.models.memo import memo
@@ -2735,14 +3314,14 @@ def main() -> int:
     want_rc = 0 if want_e else 1
 
     def zero_counts():
-        SK.LAUNCHES = SK.STREAM_LAUNCHES = PSORT.LAUNCHES = 0
+        CG.LAUNCHES.update(dict.fromkeys(CG.LAUNCHES, 0))
         TCL.DISPATCHES = WB.DISPATCHES = 0
         TE.DISPATCHES = TE.MEGABATCHES = 0
 
     def counts():
-        return {"seg_search": SK.LAUNCHES,
-                "seg_search[stream]": SK.STREAM_LAUNCHES,
-                "pair_sort": PSORT.LAUNCHES,
+        return {"seg_search": CG.LAUNCHES["seg_search"],
+                "seg_search[stream]": CG.LAUNCHES["seg_search_stream"],
+                "pair_sort": CG.LAUNCHES["pair_sort"],
                 "closure_diag": TCL.DISPATCHES, "wl_check": WB.DISPATCHES,
                 "stream_dispatch": TE.DISPATCHES,
                 "stream_megabatch": TE.MEGABATCHES}
@@ -2804,7 +3383,7 @@ def main() -> int:
           f"s, parser {parser_e3} (native build: {native_state}); span "
           f"ms: " + ", ".join(f"{k} {v:.2f}" for k, v in stages_e3.items()))
     f = run("f", h_f, backend="device")
-    launches = SK.LAUNCHES
+    launches = CG.LAUNCHES["seg_search"]
     path_counts = {"single-history": counts()}
 
     checks = [
@@ -2943,8 +3522,10 @@ def main() -> int:
                            "escalated": info.get("escalated"),
                            "status_counts": {int(k): int(v) for k, v in zip(
                                *np.unique(st, return_counts=True))}}
+        stream = {k: v for k, v in (info.get("stream") or {}).items()
+                  if k != "slices"}
         print(f"request {name}: {len(batch)} histories F={F} "
-              f"engine={info.get('engine')} stream={info.get('stream')} "
+              f"engine={info.get('engine')} stream={stream} "
               f"escalated={info.get('escalated')} "
               f"statuses={batch_res[name]['status_counts']} "
               f"wall {wall:.3f} s")
@@ -2954,8 +3535,8 @@ def main() -> int:
     st_g2, _, _, info_g2 = run_batch("g2", batch_g2, 256)
     st_h, fa_h, _, info_h = run_batch("h", batch_h, 8192)
     st_h10, fa_h10, _, info_h10 = run_batch("h10", batch_h10, 8192)
-    stream_launches = SK.STREAM_LAUNCHES
-    sort_launches = PSORT.LAUNCHES
+    stream_launches = CG.LAUNCHES["seg_search_stream"]
+    sort_launches = CG.LAUNCHES["pair_sort"]
     path_counts["batch"] = counts()
     PSORT.pair_sort = sort_fn
     batch_res["g"]["host_s"] = {"generate": t_gen, "pack": t_pack,
@@ -3095,6 +3676,27 @@ def main() -> int:
         return _fail(f"the stream path launched no segment-search kernel "
                      f"or no megabatch: {path_counts}")
 
+    # --- path 7: the verifier service, counted ----------------------------
+    print("service: the daemon on the card — (sv1) a burst of check "
+          "requests, (sv2) txn / wl / stream / shrink requests, (sv3) the "
+          "in-process core, (sv4) the mesh at D = 1, (sv5) filetest "
+          "--service, (sv6) no fallback without a card")
+    t0 = time.perf_counter()
+    try:
+        service_rec, path_counts["service"] = _service_path(
+            dev, h_a, h_e, zero_counts, counts)
+    except _Failed as e:
+        return _fail(str(e))
+    print(f"LAUNCHES (service path, this process and the daemon): "
+          f"{path_counts['service']}")
+    print(f"  (path 7 took {time.perf_counter() - t0:.1f} s, "
+          f"{service_rec['wall_s']:.1f} s of it the counted requests)")
+    if not (path_counts["service"]["seg_search[stream]"] > 0
+            and path_counts["service"]["seg_search"] > 0
+            and path_counts["service"]["pair_sort"] > 0):
+        return _fail(f"the service path launched a kernel no time: "
+                     f"{path_counts['service']}")
+
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
           "segments (head from the initial carry; tail ending at the "
@@ -3149,8 +3751,12 @@ def main() -> int:
     # launch, two of (g)'s group streams together at (g)'s layout, and
     # one group stream of nine (h) histories with an INVALID and an
     # overflowing one in the middle
-    def stream_inputs(batch, info_b):
+    def stream_inputs(batch, info_b, geo=None):
+        # one launch slice of the batch (default: the first; check_batch
+        # slices a batch whose streams it builds, see TB._slice_cap)
+        geo = info_b["stream"] if geo is None else geo
         streams, _ = TB._stream_segments(batch)
+        streams = streams[geo["start"]:geo["end"]]
         sizes = dict(n_states=batch.memo.n_states,
                      n_transitions=batch.memo.n_transitions)
         spec_b = TB._slice_spec(streams, sizes)
@@ -3161,11 +3767,10 @@ def main() -> int:
         t0 = time.perf_counter()
         seg, plan, _ = SK.pack_groups(streams, spec_b, groups)
         t_pack = time.perf_counter() - t0
-        if (len(plan), seg.shape[1]) != (info_b["stream"]["groups"],
-                                         info_b["stream"]["rows"]):
+        if (len(plan), seg.shape[1]) != (geo["groups"], geo["rows"]):
             raise AssertionError(f"re-packed launch {len(plan)} x "
                                  f"{seg.shape[1]} != the main path's "
-                                 f"{info_b['stream']}")
+                                 f"{geo}")
         return (streams, sizes["n_transitions"], spec_b, table,
                 torch.from_numpy(seg).to(dev), plan, t_pack)
 
@@ -3235,20 +3840,34 @@ def main() -> int:
 
     err_s = max(err_s, _contended_union(dev, results))
 
-    # the (g) launch itself, re-timed outside the counted path
-    (streams_g, stride_g, spec_g, table_g, seg_g, plan_g,
-     t_groups) = stream_inputs(batch_g, info_g)
-    n_hist_g = max(len(g_) for g_ in plan_g)
-    work_g = torch.zeros(seg_g.shape[0], dtype=torch.int64, device=dev)
-    need_g = torch.zeros_like(work_g)
-    res_g = SK.seg_search_stream(seg_g, stride_g, table_g, spec_g,
-                                 n_hist_g, work=work_g, need=need_g)
-    torch.cuda.synchronize()
-    ms_g = _time_cuda(lambda: SK.seg_search_stream(
-        seg_g, stride_g, table_g, spec_g, n_hist_g), 2)
-    bound_g, by_g = _bound(4 * (seg_g.numel() + table_g.numel()
-                                + res_g.numel()),
-                           int(need_g.sum()) * spec_g.n_words, int32_rate)
+    # (g)'s launches, re-timed outside the counted path: every launch
+    # slice of the main path's run, each timed alone; the bound is the
+    # whole (g)'s
+    slices_g, bytes_g, ops_g, compares_g, need_total = [], 0, 0, 0, 0
+    for k, geo in enumerate(info_g["stream"]["slices"]):
+        (streams_k, stride_k, spec_k, table_k, seg_k, plan_k,
+         t_k) = stream_inputs(batch_g, info_g, geo)
+        n_hist_k = max(len(g_) for g_ in plan_k)
+        work_k = torch.zeros(seg_k.shape[0], dtype=torch.int64, device=dev)
+        need_k = torch.zeros_like(work_k)
+        res_k = SK.seg_search_stream(seg_k, stride_k, table_k, spec_k,
+                                     n_hist_k, work=work_k, need=need_k)
+        torch.cuda.synchronize()
+        slices_g.append(_time_cuda(
+            lambda a=(seg_k, stride_k, table_k, spec_k, n_hist_k):
+            SK.seg_search_stream(*a), 2))
+        bytes_g += 4 * (seg_k.numel() + table_k.numel() + res_k.numel())
+        ops_g += int(need_k.sum()) * spec_k.n_words
+        compares_g += int(work_k.sum())
+        need_total += int(need_k.sum())
+        if k == 0:          # the first launch's groups, for the parity
+            (streams_g, stride_g, spec_g, table_g, seg_g, plan_g, t_groups,
+             n_hist_g, res_g, work_g, need_g) = (
+                streams_k, stride_k, spec_k, table_k, seg_k, plan_k, t_k,
+                n_hist_k, res_k, work_k, need_k)
+        del seg_k, res_k
+    ms_g = sum(slices_g)
+    bound_g, by_g = _bound(bytes_g, ops_g, int32_rate)
     # two of (g)'s own group streams launched together: the longest,
     # and one holding a different number of histories (else the
     # shortest)
@@ -3323,9 +3942,9 @@ def main() -> int:
         "launch_geometry": SK.launch_geometry(
             int(seg_g.shape[0]),
             torch.cuda.get_device_properties(dev).multi_processor_count),
-        "ms": ms_g,
+        "ms": ms_g, "launches": len(slices_g), "launch_ms": slices_g,
         "bound_ms": bound_g, "bound_by": by_g,
-        "compares": int(work_g.sum()), "need": int(need_g.sum()),
+        "compares": compares_g, "need": need_total,
         "pack_groups_s": t_groups,
         "checked_ops_per_s": n_ops_g / (ms_g / 1e3)}
     batch_res["h"]["kernel"] = {
@@ -3337,13 +3956,16 @@ def main() -> int:
           f"{seg_g.shape[0]} group streams, at most {n_hist_g} histories "
           f"per stream; (CTAs, warps per CTA) = "
           f"{batch_res['g']['kernel']['launch_geometry']}")
-    print(f"  g kernel: {seg_g.shape[0]} streams x {seg_g.shape[1]} rows, "
-          f"{ms_g:.3f} ms (CUDA events, mean of 2), bound {bound_g:.5f} ms "
-          f"({by_g}); {n_ops_g / (ms_g / 1e3):.0f} checked ops/s; "
-          f"group packing {t_groups:.2f} s")
+    print(f"  g kernel: {len(slices_g)} launch(es) of the main path, "
+          f"{ms_g:.3f} ms in all (each timed alone by CUDA events, mean of "
+          f"2: " + ", ".join(f"{m_:.3f}" for m_ in slices_g) + " ms), the "
+          f"first {seg_g.shape[0]} streams x {seg_g.shape[1]} rows; bound "
+          f"{bound_g:.5f} ms ({by_g}); {n_ops_g / (ms_g / 1e3):.0f} checked "
+          f"ops/s ({n_ops_g} ops); group packing {t_groups:.2f} s")
     print(f"  h kernel: {seg_h.shape[0]} streams x {seg_h.shape[1]} rows, "
           f"{ms_s:.3f} ms (CUDA events, mean of 5), plain {plain_ms_s:.1f}"
           f" ms, bound {bound_s:.5f} ms ({by_s})")
+    err_s = max(err_s, service_rec["sv3"]["max_abs_err"])
     entries.append({
         "name": "seg_search[stream]", "route": "cuda",
         "source": "comdb2_tpu_torch/kernels/seg_search.cu",
@@ -3356,8 +3978,12 @@ def main() -> int:
         "measured_on": f"request (h)'s whole launch, "
                        f"{int(seg_h.shape[0])} warp streams",
         "batch_ms": ms_g, "batch_bound_ms": bound_g,
-        "batch_bound_by": by_g,
-        "batch_measured_on": f"(g), {int(seg_g.shape[0])} warp streams"})
+        "batch_bound_by": by_g, "batch_launch_ms": slices_g,
+        "batch_measured_on": f"(g)'s {len(slices_g)} launch(es), "
+                             f"{int(seg_g.shape[0])} warp streams in the "
+                             f"first",
+        "service_path": {"parity_groups": service_rec["sv3"][
+            "checked_groups"], "plain_ms": service_rec["sv3"]["plain_ms"]}})
 
     # pair_sort: the widest rows the keys engine sorted in (h) and in
     # (j2), random rows at the block-sort and the merge-pass widths, and
@@ -3480,7 +4106,7 @@ def main() -> int:
         json.dump({"gpu": gpu, "requests": results, "batches": batch_res,
                    "checker_layer": checker_rec,
                    "last_batch_engines": escal_rec, "shrink": shrink_rec,
-                   "stream": stream_rec,
+                   "stream": stream_rec, "service": service_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

@@ -8,7 +8,9 @@ CUDA C++ for ``sm_90a`` in :mod:`.kernels`), then the MXU or seg2
 engines → verdict (:func:`.checker.analysis`). So does the batch check
 (:func:`.checker.batch.check_batch`): the same kernel in its stream mode
 over many histories, with the keys engine and its pair-sort kernel
-behind it.
+behind it. The checker layer, shrink and streaming sessions sit on
+those engines, and :mod:`.service` serves all of them as a batching
+daemon (``python -m comdb2_tpu_torch.service``).
 
 The package imports ``torch`` and numpy only; it never imports ``jax``
 or the JAX package. Entry points run on ``cuda`` unless the caller

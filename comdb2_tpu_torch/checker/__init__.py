@@ -24,14 +24,14 @@
 - :mod:`.wgl` — the host world search (``knossos/core.clj``).
 """
 
-from .linear import Analysis, EngineNotPorted, analysis
+from .linear import Analysis, analysis
 from .checkers import (Checker, check_safe, compose, merge_valid,
                        linearizable, Linearizable, serializable,
                        Serializable, unbridled_optimism,
                        queue, set_checker, total_queue, counter)
 from . import independent, workloads, wgl
 
-__all__ = ["Analysis", "EngineNotPorted", "analysis", "Checker",
+__all__ = ["Analysis", "analysis", "Checker",
            "check_safe", "compose", "merge_valid", "linearizable",
            "Linearizable", "serializable", "Serializable",
            "unbridled_optimism", "queue", "set_checker", "total_queue",

@@ -42,11 +42,23 @@ shape, so they need none: ``n_pad``, ``s_pad`` and ``k_pad`` floor the
 host arrays as in the reference, and the table and slot floors are
 accepted and not used.
 
-Not ported yet: the mesh routes raise
-:class:`~.linear.EngineNotPorted`. ``check_batch_async`` stages nothing
-ahead:
-its ``finalize`` is computed when it is called, and the batch is not
-sliced for host/device overlap.
+Staging: on the stream engine, :func:`check_batch_async` packs and
+launches a batch whose streams are not built yet in slices of
+:data:`PIPELINE_B` histories or one wave of the card, whichever is more,
+slice i launched before slice i+1 is packed (a batch with built streams
+is one launch), each with its results copied into
+pinned host memory behind a CUDA event (:func:`~.seg_kernel.stream_stage`);
+``finalize`` waits and decodes. The keys, flat, MXU and vmap engines
+keep their per-iteration host syncs and run inside the stage call.
+
+The mesh routes (``mesh=``, a power-of-two tuple of devices from
+``service.sharding.make_mesh``) follow the JAX package: the batch axis
+pads with sentinel histories to ``B_pad = max(next_pow2(B), D)``; the
+stream engine launches the kernel once per device and slice
+(``stream-sharded``; a one-device mesh is the plain ``stream`` route on
+that device), the keys and flat engines run one engine call per device
+(``keys-sharded`` / ``flat-sharded``), and the MXU and vmap engines drop
+the mesh, run on its first device and say so in ``info["mesh_dropped"]``.
 """
 
 from __future__ import annotations
@@ -66,7 +78,7 @@ from ..utils import resolve_device
 from . import linear_torch as LT
 from . import mxu as MXU
 from . import seg_kernel as SK
-from .linear import EngineNotPorted, kernel_slots
+from .linear import kernel_slots
 
 
 @dataclass
@@ -259,20 +271,37 @@ def segment_batch(batch: PackedBatch, streams: Optional[list] = None,
 def _build_streams(batch: PackedBatch, indices):
     """Union-remapped, slot-renamed SegmentStreams for a subset of the
     batch. Returns ``(streams, p_eff)``; slot renaming runs the batched
-    :func:`~.linear_torch.remap_slots_batch`."""
-    raw: list = []
+    :func:`~.linear_torch.remap_slots_batch`, except for histories whose
+    renaming the service's admission already cached
+    (``_remap_cache``, set by ``service.bucketing.bucket_for``: the
+    renaming depends on the process columns alone)."""
+    out: list = []
+    pes: list = []
+    todo: list = []
     for i in indices:
         p = batch.packeds[i]
-        s = _empty_stream() if _malformed(p) else _segments_of(p)
+        bad = _malformed(p)
+        s = _empty_stream() if bad else _segments_of(p)
         remap = np.asarray(batch.remaps[i], np.int32)
         if remap.size:
             inv_tr = np.where(s.inv_proc >= 0, remap[s.inv_tr],
                               0).astype(np.int32)
         else:  # no successful invokes anywhere: nothing to remap
             inv_tr = np.zeros_like(s.inv_tr, np.int32)
-        raw.append(LT.SegmentStream(s.inv_proc, inv_tr, s.ok_proc,
-                                    s.seg_index, s.depth))
-    out, pes = LT.remap_slots_batch(raw)
+        cached = None if bad else getattr(p, "_remap_cache", None)
+        if cached is not None:
+            inv_proc, ok_proc, pe = cached
+            out.append(LT.SegmentStream(inv_proc, inv_tr, ok_proc,
+                                        s.seg_index, s.depth))
+            pes.append(pe)
+        else:
+            todo.append(len(out))
+            out.append(LT.SegmentStream(s.inv_proc, inv_tr, s.ok_proc,
+                                        s.seg_index, s.depth))
+    renamed, pes_r = LT.remap_slots_batch([out[j] for j in todo])
+    for j, r, pe in zip(todo, renamed, pes_r):
+        out[j] = r
+        pes.append(pe)
     return out, max([1] + pes)
 
 
@@ -303,22 +332,138 @@ def _slice_spec(streams, sizes):
                        kernel_slots(pe), K + (K & 1))
 
 
-def _stream_stage(batch: PackedBatch, succ, sizes, device, info=None):
-    """Build the renamed streams (cached on the batch) and run the
-    stream kernel over the whole batch in one launch. Returns
-    ``(verdicts, segs_list)``: ``verdicts`` is the per-history
-    ``(status, fail_seg_local, n)`` list, or None when the shape cannot
-    run in the kernel — ``segs_list`` is complete either way, so the
-    other engines reuse the streams."""
-    segs_list, _ = _stream_segments(batch)
-    spec = _slice_spec(segs_list, sizes)
-    if spec is None:
-        return None, segs_list
-    with _obs.span("batch.dispatch", engine="stream", start=0,
-                   end=len(batch)):
-        rs = SK.stream_dispatch(succ, segs_list, spec, sizes["n_states"],
-                                sizes["n_transitions"], device, info=info)
-    return rs, segs_list
+#: the least histories per pipelined launch slice of a batch whose
+#: streams are built in the call: slice i+1's host pack overlaps slice
+#: i's run on the card (the JAX package's ``PIPELINE_B``). On the card a
+#: slice is also at least one wave (:func:`~.seg_kernel.wave_streams`),
+#: so no slice leaves SMs idle that one launch would have filled
+PIPELINE_B = 512
+
+
+def _slice_cap(device, cached: bool) -> Optional[int]:
+    """Histories per launch slice on ``device`` (None: one launch); a
+    batch whose streams are ``cached`` has no host pack to overlap."""
+    if cached:
+        return None
+    return max(PIPELINE_B, SK.wave_streams(device))
+
+
+def _slice_with_sentinels(streams, start, end, B):
+    """``streams[start:end]`` with sentinel empty streams for the pad
+    indices >= B (all padding: every engine gives them VALID, and the
+    caller slices them off before any verdict surfaces)."""
+    real = streams[start:min(end, B)]
+    return real + [_empty_stream()] * ((end - start) - len(real))
+
+
+def _stream_stage(batch: PackedBatch, succ, sizes, device, mesh=None,
+                  B_pad: Optional[int] = None, info=None):
+    """Stage the stream kernel's launches WITHOUT waiting for results.
+    On a batch without cached streams the host segment / remap pass runs
+    slice by slice (:func:`_slice_cap` histories), launching each slice
+    before building the next, so the card runs slice i while the host
+    packs slice i+1; with cached streams there is nothing to overlap, and
+    the batch is one launch (one per device on a mesh).
+
+    With a mesh of D > 1 devices each slice (of ``B_pad`` sentinel-padded
+    histories) is one launch per device (:func:`~.seg_kernel.
+    stream_stage_sharded`); a one-device mesh launches on its device.
+
+    Returns ``(pending, segs_list)``: ``pending`` lists ``(handle, start,
+    end)`` for :func:`_stream_collect`, or is None when a slice's shape
+    cannot run in the kernel — ``segs_list`` is complete either way, so
+    the other engines reuse the streams. ``info`` receives the first
+    slice's launch geometry and, under ``"slices"``, every slice's."""
+    B = len(batch)
+    D = len(mesh) if mesh is not None else 0
+    devs = list(mesh) if mesh is not None else [device]
+    cached = getattr(batch, "_stream_seg_cache", None)
+    cap = _slice_cap(devs[0], cached is not None)
+    if D > 1:
+        B_pad = B_pad if B_pad is not None else max(_next_pow2(B), D)
+        plan = [(s, e, 0) for s, e in
+                SK.plan_shard_slices(B_pad, D, max_stream_b=cap)]
+    else:
+        plan = SK.plan_stream_slices(B, D, max_stream_b=cap)
+    n_s, n_t = sizes["n_states"], sizes["n_transitions"]
+    slices: list = []
+
+    def dispatch(streams, start, end, dix):
+        spec = _slice_spec(streams, sizes)
+        if spec is None:
+            return None
+        geo = {"start": start, "end": end}
+        with _obs.span("batch.dispatch", engine="stream", start=start,
+                       end=end):
+            if D > 1:
+                handle = ("sharded", SK.stream_stage_sharded(
+                    succ, streams, spec, n_s, n_t, mesh))
+            else:
+                handle = ("single", SK.stream_stage(
+                    succ, streams, spec, n_s, n_t, devs[dix], info=geo))
+        slices.append(geo)
+        return handle
+
+    pending: list = []
+    if cached is not None:
+        segs_list = cached[0]
+        for start, end, dix in plan:
+            handle = dispatch(
+                _slice_with_sentinels(segs_list, start, end, B), start,
+                end, dix)
+            if handle is None:
+                return None, segs_list
+            pending.append((handle, start, end))
+    else:
+        segs_list, p_eff_all, dead = [], 1, False
+        for start, end, dix in plan:
+            streams, pe = _build_streams(batch, range(start, min(end, B)))
+            segs_list.extend(streams)
+            p_eff_all = max(p_eff_all, pe)
+            if dead:
+                continue          # finish building the cacheable streams
+            handle = dispatch(
+                streams + [_empty_stream()] * ((end - start)
+                                               - len(streams)),
+                start, end, dix)
+            if handle is None:
+                dead, pending = True, []
+                continue
+            pending.append((handle, start, end))
+        batch._stream_seg_cache = (segs_list, p_eff_all)
+        if dead:
+            return None, segs_list
+    if info is not None and slices:
+        info.update(slices[0])
+        info.update(slices=slices, launches=len(slices) * max(D, 1))
+    return pending, segs_list
+
+
+def _stream_ready(pending) -> bool:
+    """Whether every staged launch's results are on the host: polls
+    their events, never waits."""
+    for (kind, handle), _, _ in pending:
+        for staged in (handle if kind == "sharded" else [handle]):
+            if not staged.fetch.ready():
+                return False
+    return True
+
+
+@_obs.traced("batch.collect")
+def _stream_collect(pending, B):
+    """Wait for the staged launches in order and merge the per-slice
+    verdicts. ``B`` is the PADDED batch width when the slices were
+    sharded — the caller slices the sentinels' verdicts off."""
+    rs: list = [None] * B
+    for (kind, handle), start, end in pending:
+        if kind == "sharded":
+            res, starts = SK.collect_shards(handle)
+            rs[start:end] = SK.merge_stream_shards(res, starts,
+                                                   end - start,
+                                                   len(handle))
+        else:
+            rs[start:end] = SK.stream_collect(handle)
+    return rs
 
 
 def pick_engine(b: int, n_states: int, n_transitions: int, P: int) -> str:
@@ -360,9 +505,17 @@ def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
                       engine: str = "auto", info: Optional[dict] = None,
                       s_pad: int = 0, k_pad: int = 0, device=None,
                       **reference_pads):
-    """Return a zero-argument ``finalize()`` producing ``(status[N],
-    fail_at[N], n_final[N])`` NumPy arrays — fail_at in history-index
-    terms.
+    """Stage the batched search and return a zero-argument
+    ``finalize()`` producing ``(status[N], fail_at[N], n_final[N])``
+    NumPy arrays — fail_at in history-index terms.
+
+    Between stage and finalize the stream kernel's launches run on the
+    card: the host packs slice i+1 while slice i runs, and ``finalize``
+    waits on the results' events, decodes and escalates overflowed
+    histories; on the stream engine ``finalize.ready()`` polls those
+    events without waiting. The keys, flat, MXU and vmap engines run
+    inside the stage call (they sync with the host per closure
+    iteration).
 
     engine: "stream" runs every history through the segment-search
     kernel's stream mode; "keys" keeps the frontier as packed int32 key
@@ -371,16 +524,17 @@ def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
     is the per-op fallback over the dense step streams; "auto" picks
     the stream kernel when its gate fits, else the first of mxu, keys,
     flat and vmap that serves the shape. ``device``: ``None`` means
-    ``cuda``.
+    ``cuda`` (the mesh's first device when a mesh is given).
+    ``mesh``: a power-of-two tuple of devices (see the module note).
 
-    The engines run when this is called (the batch is not sliced for
-    host/device overlap yet): ``finalize`` only decodes and escalates.
-    ``info`` receives ``{"engine": name}`` for the path executed; the
-    flat and vmap engines add ``engine_stats`` (closure iterations,
+    ``info`` receives ``{"engine": name}`` for the path executed (with
+    ``-sharded`` for a mesh route, ``mesh_dropped`` when the engine
+    ran on one device), ``batch`` (``b``, ``b_pad``, ``pad``,
+    ``shards``), the stream engine's launch geometry under ``stream``;
+    the flat and vmap engines add ``engine_stats`` (closure iterations,
     frontier rows expanded, host syncs), and an escalation
     ``{"escalated": {"engine", "count", "engine_stats"}}``, its wall
-    time ``escalation_s`` and the escalated lanes
-    ``escalation_lanes``.
+    time ``escalation_s`` and the escalated lanes ``escalation_lanes``.
     ``s_pad``/``k_pad`` floor the keys and MXU engines' segment axes;
     the other keywords the reference takes (:data:`REFERENCE_PADS`) are
     accepted and not used, and any other keyword raises ``TypeError``."""
@@ -404,18 +558,34 @@ def check_batch_async(batch: PackedBatch, F: int = 256, mesh=None,
             n_final[bad] = 0
         return status, fail_at, n_final
 
+    if hasattr(fin, "ready"):
+        finalize.ready = fin.ready
     return finalize
+
+
+#: device-to-host bytes per history: its (status, fail, n) int32 row
+_D2H_BYTES_PER_LANE = 12
+
+
+def _streams_nbytes(streams) -> int:
+    return sum(int(s.inv_proc.nbytes) + int(s.inv_tr.nbytes)
+               + int(s.ok_proc.nbytes) + int(s.depth.nbytes)
+               for s in streams)
 
 
 def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                        info: Optional[dict], device, s_pad: int = 0,
                        k_pad: int = 0):
-    """Engine selection, host packing and the device run; returns the
-    finalize closure (fail-index decode, kernel overflow escalation)."""
-    if mesh is not None:
-        raise EngineNotPorted("check_batch: the mesh routes are not "
-                              "ported yet")
-    dev = resolve_device(device)
+    """Engine selection, host packing and the launches; returns the
+    finalize closure (readback, fail-index decode, kernel overflow
+    escalation)."""
+    D = len(mesh) if mesh is not None else 1
+    if mesh is not None and (D < 1 or D & (D - 1)):
+        raise ValueError(
+            f"mesh size must be a power of two (got {D}): per-shard "
+            "shapes are B_pad/D and must stay pow2")
+    dev = resolve_device(device if device is not None
+                         else (mesh[0] if mesh is not None else None))
     n_states = batch.memo.n_states
     n_transitions = batch.memo.n_transitions
     succ = LT.pad_succ(batch.memo.succ, _next_pow2(n_states),
@@ -423,32 +593,54 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
     P = _next_pow2(batch.P, 2)
     B = len(batch)
     sizes = {"n_states": n_states, "n_transitions": n_transitions}
+    # sharded engines need D | B; pad lanes are sentinel histories,
+    # sliced off before any verdict surfaces
+    B_pad = max(_next_pow2(B), D) if D > 1 else B
+    if info is not None:
+        info["batch"] = {"b": B, "b_pad": B_pad, "pad": B_pad - B,
+                         "shards": D}
 
     def note(name: str) -> None:
         if info is not None:
             info["engine"] = name
+
+    def pick(b=None) -> str:
+        # under a mesh each device sees B_pad / D histories, and the
+        # engines' budgets apply to that
+        if b is None:
+            b = B_pad // D if D > 1 else B
+        return pick_engine(b, n_states, n_transitions, P)
 
     def stream_fits():
         # gate BEFORE the O(total-ops) segment pass; P is not final
         # here (slot renaming can shrink it), so check at P=1
         return SK.spec_for(n_states, n_transitions, 1, 8) is not None
 
+    def xfer(nbytes: int) -> None:
+        if info is not None:
+            info["transfer_bytes"] = {
+                "h2d": int(succ.nbytes) + nbytes,
+                "d2h": B * _D2H_BYTES_PER_LANE}
+
     if engine == "auto":
-        engine = ("stream" if stream_fits()
-                  else pick_engine(B, n_states, n_transitions, P))
+        engine = "stream" if stream_fits() else pick()
     prebuilt_streams = None
     if engine == "stream":
-        rs = None
+        pending = None
         if stream_fits():
-            rs, segs_list = _stream_stage(
-                batch, succ, sizes, dev, info=None if info is None else info.setdefault(
+            pending, segs_list = _stream_stage(
+                batch, succ, sizes, dev, mesh=mesh, B_pad=B_pad,
+                info=None if info is None else info.setdefault(
                     "stream", {}))
             prebuilt_streams = segs_list
-        if rs is not None:
-            note("stream")
+        if pending is not None:
+            # a one-device mesh rides the plain stream launch
+            note("stream" if D <= 1 else "stream-sharded")
+            xfer(_streams_nbytes(segs_list))
 
             @_obs.traced("batch.finalize")
             def finalize_stream():
+                rs = _stream_collect(pending, B_pad if D > 1 else B)[:B]
                 status = np.array([r[0] for r in rs], np.int32)
                 fail_at = np.array([
                     segs_list[b].seg_index[rs[b][1]] if rs[b][1] >= 0
@@ -458,10 +650,10 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                 # overflowed it get the requested budget F through the
                 # other engines instead of a spurious UNKNOWN
                 unk = escalation_indices(status, F, SK.F)
-                # the sub-batch's own size: its budgets fit where the
-                # whole batch's may not
-                esc_engine = pick_engine(max(int(unk.size), 1), n_states,
-                                         n_transitions, P)
+                # the sub-batch's own (per-shard) size: its budgets fit
+                # where the whole batch's may not
+                sub_b = -(-int(unk.size) // D) if D > 1 else int(unk.size)
+                esc_engine = pick(max(sub_b, 1))
                 if unk.size and batch.kind.shape[1] == 0 \
                         and esc_engine == "vmap":
                     # packed with build_streams=False and only the vmap
@@ -481,8 +673,9 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                     sub_info: dict = {}
                     t_esc = _obs.monotonic()
                     st2, fa2, n2 = check_batch(
-                        sub, F=F, engine=esc_engine, info=sub_info,
-                        s_pad=s_pad, k_pad=k_pad, device=dev)
+                        sub, F=F, mesh=mesh, engine=esc_engine,
+                        info=sub_info, s_pad=s_pad, k_pad=k_pad,
+                        device=dev)
                     status, fail_at, n_final = merge_escalation(
                         status, fail_at, n_final, unk, st2, fa2, n2)
                     if info is not None:
@@ -496,19 +689,25 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
                                 sub_info["engine_stats"]
                 return status, fail_at, n_final
 
+            finalize_stream.ready = lambda: _stream_ready(pending)
             return finalize_stream
-        engine = pick_engine(B, n_states, n_transitions, P)
+        engine = pick()
     if engine not in ("mxu", "keys", "flat", "vmap"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "mxu" and not MXU.fits(n_states, n_transitions, P):
         raise ValueError("mxu engine requires the table caps and a "
                          "lossless PackPlan (see mxu.fits)")
+    if engine in ("mxu", "vmap") and mesh is not None and info is not None:
+        # no sharded form: a mesh caller runs on one device and is told
+        info["mesh_dropped"] = True
     if engine == "vmap":
         if batch.kind.shape[1] == 0:
             raise ValueError(
                 "batch was packed with build_streams=False; the vmap path "
                 "needs the dense step streams")
         note(engine)
+        xfer(int(batch.kind.nbytes) + int(batch.proc.nbytes)
+             + int(batch.tr.nbytes))
         stats: dict = {}
         out = LT.check_device_batch(succ, batch.kind, batch.proc, batch.tr,
                                     F=F, P=P, device=dev, stats=stats,
@@ -518,7 +717,8 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
         res = tuple(x.cpu().numpy() for x in out)
         return _obs.traced("batch.finalize")(
             lambda: (res[0], res[1].astype(np.int64), res[2]))
-    note(engine)
+    sharded = mesh is not None and engine in ("keys", "flat")
+    note(engine + "-sharded" if sharded else engine)
     if engine == "mxu":
         # bucket the caller's F to the engine's capacity ladder
         F = MXU.bucket_F(F)
@@ -526,16 +726,25 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
             info["frontier_capacity"] = F
     sb = segment_batch(batch, streams=prebuilt_streams, s_pad=s_pad,
                        k_pad=k_pad)
-    kw = {}
-    if engine == "flat":
-        kw["stats"] = stats = {}
-        if info is not None:
-            info["engine_stats"] = stats
-    fn = {"mxu": MXU.check_device_mxu_batch, "keys": LT.check_device_keys,
-          "flat": LT.check_device_flat}[engine]
-    status_d, fail_seg_d, n_final_d = fn(
-        succ, sb.inv_proc, sb.inv_tr, sb.ok_proc, sb.depth, B=B, F=F, P=P,
-        device=dev, **sizes, **kw)
+    xfer(int(sb.inv_proc.nbytes) + int(sb.inv_tr.nbytes)
+         + int(sb.ok_proc.nbytes) + int(sb.depth.nbytes))
+    if sharded:
+        ip, it, op_, dp = _pad_batch_axis(sb, B_pad - B)
+        status_d, fail_seg_d, n_final_d = LT.check_device_keys_sharded(
+            mesh, succ, ip, it, op_, dp, B=B_pad, F=F, P=P, engine=engine,
+            **sizes)
+    else:
+        kw = {}
+        if engine == "flat":
+            kw["stats"] = stats = {}
+            if info is not None:
+                info["engine_stats"] = stats
+        fn = {"mxu": MXU.check_device_mxu_batch,
+              "keys": LT.check_device_keys,
+              "flat": LT.check_device_flat}[engine]
+        status_d, fail_seg_d, n_final_d = fn(
+            succ, sb.inv_proc, sb.inv_tr, sb.ok_proc, sb.depth, B=B, F=F,
+            P=P, device=dev, **sizes, **kw)
     status = status_d.cpu().numpy()[:B]
     fail_seg = fail_seg_d.cpu().numpy()[:B]
     n_final = n_final_d.cpu().numpy()[:B]
@@ -572,7 +781,20 @@ def merge_escalation(status, fail_at, n_final, idx, st2, fa2, n2):
     return status, fail_at, n_final
 
 
-__all__ = ["PackedBatch", "SegmentBatch", "check_batch",
+def _pad_batch_axis(sb: SegmentBatch, extra: int):
+    """Widen the segment tensors' batch axis with ``extra`` dead
+    histories (all segments padding) so the sharded engines' B divides
+    the mesh size; dead histories come back VALID and are sliced off."""
+    if extra == 0:
+        return sb.inv_proc, sb.inv_tr, sb.ok_proc, sb.depth
+    ip = np.pad(sb.inv_proc, ((0, 0), (0, extra), (0, 0)),
+                constant_values=-1)
+    it = np.pad(sb.inv_tr, ((0, 0), (0, extra), (0, 0)))
+    op_ = np.pad(sb.ok_proc, ((0, 0), (0, extra)), constant_values=-1)
+    return ip, it, op_, sb.depth
+
+
+__all__ = ["PIPELINE_B", "PackedBatch", "SegmentBatch", "check_batch",
            "check_batch_async", "escalation_indices", "merge_escalation",
            "pack_batch", "pack_batch_masked", "pick_engine",
            "segment_batch"]

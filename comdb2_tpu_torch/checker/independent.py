@@ -14,8 +14,9 @@ kernel's stream mode), on the base checker's device.
 When the test or ``opts`` names a store directory, each key's
 ``results.edn`` and ``history.edn`` go under ``independent/<k>/``, and
 the base checker writes its own artifacts there (``linear.svg`` for an
-INVALID key), as in the JAX package. Not ported yet: the ``mesh=``
-route, which raises :class:`~.linear.EngineNotPorted`.
+INVALID key), as in the JAX package. ``mesh=`` (a tuple of devices,
+``service.sharding.make_mesh``) splits that launch over the mesh's
+devices through ``check_batch``'s mesh routes.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ from ..ops.history import history_to_edn
 from ..ops.kv import KVTuple, is_tuple, tuple_, wrap_keyed_history
 from ..ops.op import Op
 from .checkers import Checker, Linearizable, check_safe, merge_valid
-from .linear import EngineNotPorted
 
 
 def history_keys(history: Iterable[Op]) -> List[Any]:
@@ -83,9 +83,6 @@ class IndependentChecker(Checker):
         self.mesh = mesh
 
     def check(self, test, model, history, opts=None):
-        if self.mesh is not None:
-            raise EngineNotPorted("IndependentChecker: the mesh route is "
-                                  "not ported yet")
         ks = history_keys(history)
         subs = subhistories(ks, history)
         # per-key artifact routing: a failing base checker writes its
@@ -160,21 +157,18 @@ class IndependentChecker(Checker):
         # a HISTORY can raise falls back: on the host, a malformed
         # history (RuntimeError / KeyError from ``pack_history``'s
         # completion pass, ValueError) and a state space past the memo's
-        # cap (MemoOverflow); from ``check_batch``, EngineNotPorted, a
-        # route the port does not have (every engine shape is served
-        # now; only the mesh routes raise it). Every other
-        # error — a kernel that does not build or launch, CUDA itself —
-        # propagates, so a device fault can never pass as a verdict.
+        # cap (MemoOverflow). Every error of ``check_batch`` — a kernel
+        # that does not build or launch, CUDA itself — propagates, so a
+        # device fault can never pass as a verdict. ``mesh`` rides
+        # ``check_batch``'s mesh routes.
         try:
             packeds = [pack_history(list(subs[k])) for k in ks]
             pb = B.pack_batch(packeds, model)
         except (RuntimeError, KeyError, ValueError, MemoOverflow):
             return each_alone()
-        try:
-            status, _, _ = B.check_batch(pb, F=self.batch_frontier,
-                                         device=self.base.device)
-        except EngineNotPorted:
-            return each_alone()
+        status, _, _ = B.check_batch(pb, F=self.batch_frontier,
+                                     mesh=self.mesh,
+                                     device=self.base.device)
         results: Dict[Any, dict] = {}
         for i, k in enumerate(ks):
             if int(status[i]) == LT.VALID:

@@ -34,11 +34,6 @@ from . import linear_host
 UNKNOWN = "unknown"
 
 
-class EngineNotPorted(NotImplementedError):
-    """The caller asked for a route the port does not have yet (the
-    batch path's mesh routes)."""
-
-
 @dataclass
 class Analysis:
     """Checker verdict. ``valid`` is ``True``, ``False``, or

@@ -1572,3 +1572,68 @@ def check_device_keys(succ, inv_proc, inv_tr, ok_proc, depth, *,
         n_b = torch.where(live_b & (status2 == VALID), n3, n_b)
         status = status2
     return status, fail_at, n_b
+
+
+# --- the mesh route: one engine call per device -------------------------------
+
+def check_device_keys_sharded(mesh, succ, inv_proc, inv_tr, ok_proc,
+                              depth, *, B: int, F: int, P: int,
+                              n_states: int, n_transitions: int,
+                              engine: str = "keys"):
+    """The keys (or flat) engine with the batch axis split over
+    ``mesh``, a tuple of D devices: shard d checks histories ``[d*g,
+    (d+1)*g)``, g = B / D, by its own engine call on ``mesh[d]`` (the
+    keys engine's block sort is the pair-sort kernel there) — pure data
+    parallelism, no collectives. B must be a multiple of D (callers pad
+    with dead histories). Segment tensors are ``(S, B, K)`` / ``(S, B)``
+    / ``(S,)`` as for :func:`check_device_keys`; returns
+    ``(status[B], fail_segment[B], n_final[B])`` int32 CPU tensors.
+
+    The shards run one after another from this thread: the keys and
+    flat engines sync with the host once per segment, so only their
+    final readbacks are gathered at the end."""
+    from ..utils import on_device
+
+    D = len(mesh)
+    if D < 1 or B % D:
+        raise ValueError(f"B={B} must be a multiple of the mesh size {D}")
+    g = B // D
+    base = check_device_keys if engine == "keys" else check_device_flat
+    outs = []
+    for d in range(D):
+        dev = torch.device(mesh[d])
+        sl = slice(d * g, (d + 1) * g)
+        with on_device(dev):
+            outs.append(base(succ, np.asarray(inv_proc)[:, sl],
+                             np.asarray(inv_tr)[:, sl],
+                             np.asarray(ok_proc)[:, sl], depth, B=g, F=F,
+                             P=P, n_states=n_states,
+                             n_transitions=n_transitions, device=dev))
+    return tuple(torch.cat([o[i].cpu() for o in outs]) for i in range(3))
+
+
+def check_sharded(mesh, succ, kind, proc, tr, *, F: int, P: int,
+                  n_states=None, n_transitions=None):
+    """TEST ORACLE ONLY, as in the JAX package — the per-op engine with
+    the batch axis split over ``mesh``: shard d runs
+    :func:`check_device_batch` on its lanes on ``mesh[d]``. The batch
+    path never takes it (the per-op engine stays a single-device last
+    resort there); the mesh tests hold the sharded keys and flat
+    engines against it. B must be a multiple of D."""
+    from ..utils import on_device
+
+    D = len(mesh)
+    B = np.asarray(kind).shape[0]
+    if D < 1 or B % D:
+        raise ValueError(f"B={B} must be a multiple of the mesh size {D}")
+    g = B // D
+    outs = []
+    for d in range(D):
+        dev = torch.device(mesh[d])
+        sl = slice(d * g, (d + 1) * g)
+        with on_device(dev):
+            outs.append(check_device_batch(
+                succ, np.asarray(kind)[sl], np.asarray(proc)[sl],
+                np.asarray(tr)[sl], F=F, P=P, n_states=n_states,
+                n_transitions=n_transitions, device=dev))
+    return tuple(torch.cat([o[i].cpu() for o in outs]) for i in range(3))

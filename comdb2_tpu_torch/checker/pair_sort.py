@@ -34,15 +34,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import compile_guard
+
 #: keys a CTA sorts in the block sort, and the outputs a CTA writes in a
 #: merge pass (the kernel's T = 16 keys x 256 threads; 34,816 bytes of
 #: shared memory per CTA)
 SMEM_N = 4096
-
-#: kernel launches this process — one per :func:`pair_sort` call on
-#: the card (:func:`launches_per_call` grid launches inside that one call)
-LAUNCHES = 0
-
 
 def pair_sort_reference(hi: torch.Tensor, lo: torch.Tensor):
     """The plain version: a stable sort on ``hi`` after a stable sort on
@@ -107,7 +104,6 @@ def pair_sort(hi: torch.Tensor, lo: torch.Tensor, lib=None):
     _check_inputs(hi, lo)
     if not hi.is_cuda:
         return pair_sort_reference(hi, lo)
-    global LAUNCHES
     from ..kernels import build
 
     lib = build.load("pair_sort") if lib is None else lib
@@ -115,11 +111,12 @@ def pair_sort(hi: torch.Tensor, lo: torch.Tensor, lib=None):
     if not B:
         return hi.clone(), lo.clone()
     hi, lo, out_hi, out_lo, scratch = _buffers(lib, hi, lo)
+    stream = torch.cuda.current_stream(hi.device)
+    begun = compile_guard.launch_begins(stream)
     _raise_on(lib.pair_sort_launch(
         hi.data_ptr(), lo.data_ptr(), out_hi.data_ptr(), out_lo.data_ptr(),
-        scratch.data_ptr(), B, N,
-        torch.cuda.current_stream(hi.device).cuda_stream), "launch")
-    LAUNCHES += 1
+        scratch.data_ptr(), B, N, stream.cuda_stream), "launch")
+    compile_guard.note_launch("pair_sort", N, begun, stream)
     return out_hi, out_lo
 
 
@@ -130,7 +127,6 @@ def phase_ms(hi: torch.Tensor, lo: torch.Tensor, reps: int = 20):
     warm-up sort first; then a sleep kernel holds the card while the host
     queues the sorts, so that the host's launch time does not show. A
     timing call: it checks nothing of the result."""
-    global LAUNCHES
     from ..kernels import build
 
     _check_inputs(hi, lo)
@@ -144,7 +140,7 @@ def phase_ms(hi: torch.Tensor, lo: torch.Tensor, reps: int = 20):
     events = [[torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
               for _ in range(reps)]
     _raise_on(lib.pair_sort_launch(*args, stream.cuda_stream), "launch")
-    LAUNCHES += 1
+    compile_guard.note_launch("pair_sort", N)
     torch.cuda.synchronize(hi.device)
     with torch.cuda.stream(stream):
         torch.cuda._sleep(reps * n * 200_000)
@@ -154,7 +150,7 @@ def phase_ms(hi: torch.Tensor, lo: torch.Tensor, reps: int = 20):
             _raise_on(lib.pair_sort_phase(*args, p, stream.cuda_stream),
                       f"phase {p}")
             ev[p + 1].record(stream)
-        LAUNCHES += 1
+        compile_guard.note_launch("pair_sort", N)
     torch.cuda.synchronize(hi.device)
     return [sum(ev[p].elapsed_time(ev[p + 1]) for ev in events) / reps
             for p in range(n)]
@@ -180,5 +176,5 @@ def kernel_attrs(lib=None):
     return attrs
 
 
-__all__ = ["LAUNCHES", "SMEM_N", "kernel_attrs", "launches_per_call",
+__all__ = ["SMEM_N", "kernel_attrs", "launches_per_call",
            "pair_sort", "pair_sort_reference", "phase_ms"]

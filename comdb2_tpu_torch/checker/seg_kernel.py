@@ -41,6 +41,11 @@ the frontier with the empty config; an INVALID or UNKNOWN history skips
 to the next RESET, so it never stops the histories after it. A batch is
 packed into G RESET-marked group streams, balanced by segment count,
 one warp each, G = SMs x warp-streams per SM (:func:`stream_dispatch`).
+:func:`stream_stage` launches without a readback (the results follow
+into pinned host memory behind a CUDA event) and :func:`stream_collect`
+waits; the mesh route (:func:`stream_stage_sharded`,
+:func:`plan_shard_slices`, :func:`merge_stream_shards`) launches once
+per device of a mesh, each with its own copy of the table.
 
 Host half (same key layout as the JAX package, so frontiers decode
 identically): :class:`SegKernelSpec`, :func:`spec_for`,
@@ -70,7 +75,8 @@ import torch
 
 from ..obs import trace as _obs
 from ..utils import next_pow2 as _next_pow2
-from ..utils import resolve_device
+from ..utils import (compile_guard, on_device, readback_async,
+                     resolve_device, upload)
 from .linear_torch import INVALID, UNKNOWN, VALID
 
 LANES = 128
@@ -84,11 +90,6 @@ SENT_LO = 0
 RESET = -2                # ok_proc marker: flush a history, start the next
 
 WARPS_PER_CTA = 8         # the kernel's MAX_WARPS: warp-streams per CTA
-
-#: kernel launches this process (the wrappers' counts; the plain
-#: version never touches them): single-history and stream mode
-LAUNCHES = 0
-STREAM_LAUNCHES = 0
 
 
 class SegKernelSpec(NamedTuple):
@@ -446,7 +447,6 @@ def _launch(seg, off: int, stride: int, ws, stat, table,
     count as :func:`seg_search_reference` counts it, ``need`` the count
     of :func:`needed_compares`. ``lib`` is the loaded library to launch
     (default: the plain build, ``build.load()``)."""
-    global LAUNCHES, STREAM_LAUNCHES
     from ..kernels import build
 
     lib = build.load() if lib is None else lib
@@ -457,6 +457,8 @@ def _launch(seg, off: int, stride: int, ws, stat, table,
     batch = seg.shape[0] if seg.dim() == 3 else 1
     sms = torch.cuda.get_device_properties(ws.device).multi_processor_count
     _, warps = launch_geometry(batch, sms)
+    stream = torch.cuda.current_stream(ws.device)
+    begun = compile_guard.launch_begins(stream)
     err = lib.seg_search_launch(
         seg.data_ptr(), seg.shape[-2], off, stride, ws.data_ptr(),
         stat.data_ptr(), table.data_ptr(), table.numel(),
@@ -465,15 +467,13 @@ def _launch(seg, off: int, stride: int, ws, stat, table,
         None if results is None else results.data_ptr(),
         0 if results is None else results.shape[1],
         None if work is None else work.data_ptr(),
-        None if need is None else need.data_ptr(),
-        torch.cuda.current_stream(ws.device).cuda_stream)
+        None if need is None else need.data_ptr(), stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_search launch failed: CUDA error {err} "
                            f"({build.error_string(err)})")
-    if results is None:
-        LAUNCHES += 1
-    else:
-        STREAM_LAUNCHES += 1
+    compile_guard.note_launch(
+        "seg_search" if results is None else "seg_search_stream",
+        (spec.P, spec.K, spec.n_words), begun, stream)
     return ws_out, stat_out
 
 
@@ -589,29 +589,39 @@ def pack_stream(segs_list, spec: SegKernelSpec, chunk: int = 1):
     Returns ``(rows int32[n, 2+2K], starts int64[B])``, ``n`` padded
     with dead rows to a multiple of ``chunk``; ``starts[b]`` is history
     b's first segment's index in the stream."""
-    B = len(segs_list)
-    W = 2 + 2 * spec.K
-    sizes = [s.ok_proc.shape[0] for s in segs_list]
-    total = sum(sizes) + B + 1
-    flat = np.zeros((max(-(-total // chunk), 1) * chunk, W), np.int32)
-    flat[:, 0] = -1                       # default: dead padding
-    starts = np.zeros(B, np.int64)
+    total = sum(s.ok_proc.shape[0] for s in segs_list) + len(segs_list) + 1
+    flat = np.empty((max(-(-total // chunk), 1) * chunk, 2 + 2 * spec.K),
+                    np.int32)
+    return flat, _fill_stream(flat, segs_list, spec)
+
+
+def _fill_stream(flat: np.ndarray, segs_list, spec: SegKernelSpec):
+    """Write :func:`pack_stream`'s rows into ``flat`` (int32[n, 2+2K],
+    n at least the stream's rows; every row is written, the rows past
+    the stream as dead padding). Returns ``starts``."""
+    K = spec.K
+    starts = np.zeros(len(segs_list), np.int64)
     pos = 0
     for b, segs in enumerate(segs_list):
+        S = segs.ok_proc.shape[0]
+        k_in = segs.inv_proc.shape[1]
+        flat[pos] = 0
         flat[pos, 0] = RESET
         pos += 1
         starts[b] = pos
-        S = sizes[b]
-        k_in = segs.inv_proc.shape[1]
-        flat[pos:pos + S, 0] = segs.ok_proc
-        flat[pos:pos + S, 1] = segs.depth
-        flat[pos:pos + S, 2:2 + k_in] = segs.inv_proc
-        if k_in < spec.K:
-            flat[pos:pos + S, 2 + k_in:2 + spec.K] = -1
-        flat[pos:pos + S, 2 + spec.K:2 + spec.K + k_in] = segs.inv_tr
+        rows = flat[pos:pos + S]
+        rows[:, 0] = segs.ok_proc
+        rows[:, 1] = segs.depth
+        rows[:, 2:2 + k_in] = segs.inv_proc
+        rows[:, 2 + k_in:2 + K] = -1
+        rows[:, 2 + K:2 + K + k_in] = segs.inv_tr
+        rows[:, 2 + K + k_in:] = 0
         pos += S
+    flat[pos] = 0
     flat[pos, 0] = RESET                  # trailing flush
-    return flat, starts
+    flat[pos + 1:] = 0
+    flat[pos + 1:, 0] = -1                # dead padding
+    return starts
 
 
 def plan_stream_slices(B: int, n_devices: int,
@@ -621,8 +631,8 @@ def plan_stream_slices(B: int, n_devices: int,
     histories (default: no cap — one slice) and, when ``n_devices`` >
     0, sized to spread the batch across the devices round-robin.
 
-    The reference's slice plan, kept as a pure helper: the port's batch
-    path runs the whole batch in one launch and never slices it."""
+    The batch path's pipelining plan (``checker.batch``): slice i
+    launches before slice i+1 is packed."""
     cap = max(B, 1) if max_stream_b is None else max_stream_b
     group = min(cap, -(-B // n_devices)) if n_devices > 0 else cap
     return [(i, min(i + group, B),
@@ -675,6 +685,26 @@ def warp_streams_per_sm(spec: SegKernelSpec, table_n: int) -> int:
     return per_sm
 
 
+#: :func:`wave_streams` by CUDA device index
+_WAVES: dict = {}
+
+
+def wave_streams(device) -> int:
+    """Warp streams the card holds at once at the kernel's narrowest
+    layout (SMs x its warp streams per SM): every layout holds at most
+    this many, so a launch of this many histories or more fills the
+    card. 0 on CPU tensors."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return 0
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _WAVES:
+        sms = torch.cuda.get_device_properties(key).multi_processor_count
+        with on_device(torch.device("cuda", key)):
+            _WAVES[key] = sms * warp_streams_per_sm(spec_for(2, 2, 1, 2), 4)
+    return _WAVES[key]
+
+
 def default_groups(B: int, spec: SegKernelSpec, table_n: int,
                    device) -> int:
     """Group streams for a batch of ``B``: on the card, as many warp
@@ -704,8 +734,10 @@ def seg_search_stream(seg: torch.Tensor, stride: int, table: torch.Tensor,
     to launch (see :func:`_launch`)."""
     dev = seg.device
     G = seg.shape[0]
-    ws0 = torch.from_numpy(initial_frontier(spec)).to(dev)
-    stat0 = torch.from_numpy(_init_stat()).to(dev)
+    # non-blocking uploads: a blocking copy would wait for the launches
+    # already queued on the stream (the staged batch path's overlap)
+    ws0 = upload(initial_frontier(spec), dev)
+    stat0 = upload(_init_stat(), dev)
     results = torch.zeros((G, max(n_hist, 1), 3), dtype=torch.int32,
                           device=dev)
     if not seg.is_cuda:
@@ -719,21 +751,101 @@ def seg_search_stream(seg: torch.Tensor, stride: int, table: torch.Tensor,
     return results
 
 
-def pack_groups(segs_list, spec: SegKernelSpec, groups: int):
+def pack_groups(segs_list, spec: SegKernelSpec, groups: int, empty=None):
     """Pack histories into ``groups`` RESET-marked group streams,
     balanced by segment count (:func:`plan_groups`), each padded with
     dead rows to the longest. Returns ``(seg int32[G, L, 2+2K], plan,
     starts)``: ``plan[g]`` lists group g's history indices in stream
-    order, ``starts[g]`` their first segments' stream indices."""
-    plan = plan_groups([s.ok_proc.shape[0] for s in segs_list], groups)
-    packs = [pack_stream([segs_list[b] for b in grp], spec)
-             for grp in plan]
-    L = max(rows.shape[0] for rows, _ in packs)
-    seg = np.zeros((len(plan), L, 2 + 2 * spec.K), np.int32)
-    seg[:, :, 0] = -1
-    for g, (rows, _) in enumerate(packs):
-        seg[g, :rows.shape[0]] = rows
-    return seg, plan, [starts for _, starts in packs]
+    order, ``starts[g]`` their first segments' stream indices.
+    ``empty(shape)`` gives the int32 array ``seg`` is written into
+    (default: a new NumPy array)."""
+    sizes = [s.ok_proc.shape[0] for s in segs_list]
+    plan = plan_groups(sizes, groups)
+    L = max(sum(sizes[b] for b in grp) + len(grp) + 1 for grp in plan)
+    shape = (len(plan), L, 2 + 2 * spec.K)
+    seg = np.empty(shape, np.int32) if empty is None else empty(shape)
+    starts = [_fill_stream(seg[g], [segs_list[b] for b in grp], spec)
+              for g, grp in enumerate(plan)]
+    return seg, plan, starts
+
+
+class StagedStream(NamedTuple):
+    """One launch queued by :func:`stream_stage`: ``fetch`` is the
+    readback's finalize (the pinned copy of the results behind its
+    event), ``index`` and ``starts`` put each history's row of the
+    grouped results back in input order."""
+    fetch: object
+    index: np.ndarray      # int64[B, 2]: (group, position) of history b
+    starts: np.ndarray     # int64[B]: history b's first stream row
+    n: int
+
+
+def stream_stage(succ, segs_list, spec: SegKernelSpec, n_states: int,
+                 n_transitions: int, device=None,
+                 groups: Optional[int] = None,
+                 info: Optional[dict] = None) -> StagedStream:
+    """Pack, upload and launch one stream-mode call WITHOUT a readback:
+    the results are copied into pinned host memory behind a CUDA event
+    on ``device``'s current stream (:func:`~..utils.readback_async`),
+    so the host packs the next launch while this one runs. On CPU
+    tensors the plain version runs here. Collect with
+    :func:`stream_collect`."""
+    dev = resolve_device(device)
+    with on_device(dev):
+        table = upload(pack_table(np.asarray(succ)[:n_states,
+                                                   :n_transitions]), dev)
+        if groups is None:
+            groups = default_groups(len(segs_list), spec, table.numel(),
+                                    dev)
+        if dev.type == "cuda":
+            # written straight into pinned memory (torch's host cache
+            # reuses the block), then one non-blocking copy
+            pinned = []
+
+            def empty(shape):
+                pinned.append(torch.empty(shape, dtype=torch.int32,
+                                          pin_memory=True))
+                return pinned[0].numpy()
+
+            seg, plan, starts = pack_groups(segs_list, spec, groups,
+                                            empty=empty)
+            seg_dev = pinned[0].to(dev, non_blocking=True)
+        else:
+            seg, plan, starts = pack_groups(segs_list, spec, groups)
+            seg_dev = torch.from_numpy(seg)
+        n_hist = max(len(grp) for grp in plan)
+        if info is not None:
+            info.update(groups=len(plan), rows=seg.shape[1],
+                        histories=len(segs_list), max_per_group=n_hist)
+            if dev.type == "cuda":
+                info["streams_per_sm"] = warp_streams_per_sm(
+                    spec, table.numel())
+        res = seg_search_stream(seg_dev, n_transitions, table, spec,
+                                n_hist)
+        fetch = readback_async(res)
+    index = np.zeros((len(segs_list), 2), np.int64)
+    st = np.zeros(len(segs_list), np.int64)
+    for g, grp in enumerate(plan):
+        index[grp, 0] = g
+        index[grp, 1] = np.arange(len(grp))
+        st[grp] = starts[g]
+    return StagedStream(fetch, index, st, len(segs_list))
+
+
+def stream_rows(staged: StagedStream):
+    """Wait for one staged launch and return ``(rows int32[B, 3],
+    starts int64[B])`` in input order: each history's ``(status, fail,
+    n)`` with fail in its group stream's coordinates, and its first
+    row in that stream (the pair :func:`merge_stream_slice` takes)."""
+    res = staged.fetch()
+    return res[staged.index[:, 0], staged.index[:, 1]], staged.starts
+
+
+def stream_collect(staged: StagedStream):
+    """``[(status, fail_seg_local, n), ...]`` of a staged launch, in
+    input order."""
+    rows, starts = stream_rows(staged)
+    return merge_stream_slice(rows, starts, staged.n)
 
 
 def stream_dispatch(succ, segs_list, spec: SegKernelSpec, n_states: int,
@@ -745,28 +857,74 @@ def stream_dispatch(succ, segs_list, spec: SegKernelSpec, n_states: int,
     :func:`default_groups` unless given), one warp per group. Every
     history gets its own verdict; one history's INVALID or UNKNOWN never
     stops the others. Returns ``[(status, fail_seg_local, n), ...]`` in
-    input order; ``info`` receives the launch geometry."""
-    dev = resolve_device(device)
-    B = len(segs_list)
-    if B == 0:
+    input order; ``info`` receives the launch geometry. The staged
+    pair :func:`stream_stage` / :func:`stream_collect`, back to back."""
+    if not segs_list:
         return []
-    table = torch.from_numpy(
-        pack_table(np.asarray(succ)[:n_states, :n_transitions])).to(dev)
-    if groups is None:
-        groups = default_groups(B, spec, table.numel(), dev)
-    seg, plan, starts = pack_groups(segs_list, spec, groups)
-    n_hist = max(len(grp) for grp in plan)
-    if info is not None:
-        info.update(groups=len(plan), rows=seg.shape[1], histories=B,
-                    max_per_group=n_hist)
-        if dev.type == "cuda":
-            info["streams_per_sm"] = warp_streams_per_sm(spec,
-                                                         table.numel())
-    res = seg_search_stream(torch.from_numpy(seg).to(dev), n_transitions,
-                            table, spec, n_hist).cpu().numpy()
-    out: list = [None] * B
-    for g, grp in enumerate(plan):
-        for b, r in zip(grp, merge_stream_slice(res[g], starts[g],
-                                                len(grp))):
-            out[b] = r
+    return stream_collect(stream_stage(succ, segs_list, spec, n_states,
+                                       n_transitions, device,
+                                       groups=groups, info=info))
+
+
+# --- the mesh route: one launch per device ------------------------------------
+
+def plan_shard_slices(B: int, D: int,
+                      max_stream_b: Optional[int] = None):
+    """Pure slice assignment for the sharded stream path: ``B`` (a
+    positive multiple of ``D`` — callers pad with sentinel histories)
+    splits into ``[(start, end), ...]`` slices whose width is always a
+    multiple of ``D``. Within a slice, shard ``d`` owns the contiguous
+    sub-range ``[start + d*g, start + (d+1)*g)`` with ``g = (end -
+    start) // D``. Per-shard slice width is capped at ``max_stream_b``
+    (default: no cap — one slice)."""
+    if D <= 0 or B % D != 0:
+        raise ValueError(f"B={B} must be a positive multiple of D={D}")
+    cap = max(B // D, 1) if max_stream_b is None else max_stream_b
+    step = min(cap, max(B // D, 1)) * D
+    return [(i, min(i + step, B)) for i in range(0, B, step)]
+
+
+def merge_stream_shards(res, starts, n: int, D: int):
+    """Pure verdict unpacking for ONE sharded dispatch: ``res[d]`` holds
+    shard d's rows, ``starts[d]`` their stream offsets. Returns the
+    slice's ``n`` verdicts in slice order (shard d owns the contiguous
+    sub-range ``[d*g, (d+1)*g)``, matching :func:`plan_shard_slices`)."""
+    g = n // D
+    out = []
+    for d in range(D):
+        out.extend(merge_stream_slice(res[d], starts[d], g))
     return out
+
+
+def stream_stage_sharded(succ, segs_list, spec: SegKernelSpec,
+                         n_states: int, n_transitions: int, mesh):
+    """Stage ONE launch per device of ``mesh`` (a tuple of D devices)
+    for a slice of B histories, B % D == 0: shard d launches
+    ``seg_search.cu`` in stream mode on ``mesh[d]``, with its own copy
+    of the table, over histories ``[d*g, (d+1)*g)``, g = B / D. No
+    collectives: each shard is a closed computation. Returns the D
+    staged launches; collect with :func:`collect_shards`."""
+    D = len(mesh)
+    B = len(segs_list)
+    if D <= 0 or B % D != 0:
+        raise ValueError(f"B={B} must be a multiple of D={D}")
+    g = B // D
+    return [stream_stage(succ, segs_list[d * g:(d + 1) * g], spec,
+                         n_states, n_transitions, mesh[d])
+            for d in range(D)]
+
+
+def collect_shards(staged):
+    """Wait for every shard's launch: ``(res int32[D, g, 3], starts
+    [D][g])``, the pair :func:`merge_stream_shards` decodes."""
+    rows = [stream_rows(s) for s in staged]
+    return np.stack([r for r, _ in rows]), [st for _, st in rows]
+
+
+def stream_dispatch_sharded(succ, segs_list, spec: SegKernelSpec,
+                            n_states: int, n_transitions: int, mesh):
+    """The sharded launch of B histories over ``mesh``, staged and
+    collected: returns ``(res, starts)`` for
+    :func:`merge_stream_shards` (see :func:`stream_stage_sharded`)."""
+    return collect_shards(stream_stage_sharded(
+        succ, segs_list, spec, n_states, n_transitions, mesh))

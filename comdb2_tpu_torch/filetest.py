@@ -31,7 +31,11 @@ verdict latches, or after ``--follow-idle`` seconds without new bytes
 (then the tail settles, an unterminated last line included, and the
 final verdict is a one-shot check's).
 
-Not ported yet: ``--service``; it waits for the serving slice.
+``--service HOST:PORT`` submits the history to a running verifier
+daemon (``python -m comdb2_tpu_torch.service``) instead of checking it
+here — this process touches no device — with the JAX package's exit
+codes, and 3 when nothing was checked (an unreachable daemon, an error
+reply such as overload or bad-request).
 """
 
 from __future__ import annotations
@@ -84,6 +88,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--keyed", action="store_true",
                    help="re-tag [k v] op values as keyed tuples "
                         "(independent-generator histories)")
+    p.add_argument("--service", metavar="HOST:PORT",
+                   help="submit to a running verifier daemon "
+                        "(python -m comdb2_tpu_torch.service) instead "
+                        "of checking locally — no local device is "
+                        "touched; exits 3 on a daemon error reply "
+                        "(overload/bad-request: nothing was checked)")
     p.add_argument("--shrink", action="store_true",
                    help="on INVALID, minimize to a 1-minimal "
                         "sub-history (completion-pair ddmin, batched "
@@ -142,6 +152,8 @@ def _run(args) -> int:
                   file=sys.stderr)
             return 3
         return _run_follow(args)
+    if args.service:
+        return _run_service(args)
     with obs_trace.span("filetest.parse", path=args.history) as sp:
         with open(args.history) as fh:
             parsed: dict = {}
@@ -324,24 +336,100 @@ def _shrink(history, valid, args) -> None:
         # back UNKNOWN
         print(f"--shrink: {e}", file=sys.stderr)
         return
-    _save_shrink_artifacts(r, args)
+    _save_shrink_artifacts(r.ops, r, args)
 
 
-def _save_shrink_artifacts(result, args) -> None:
+def _run_service(args) -> int:
+    """``--service HOST:PORT``: one request to the daemon; the exit code
+    is the reply's verdict's, or 3 when nothing was checked."""
+    from .service.client import ServiceClient
+
+    host, _, port = args.service.rpartition(":")
+    with open(args.history) as fh:
+        text = fh.read()
+    try:
+        with ServiceClient(host or "127.0.0.1", int(port)) as c:
+            if args.shrink:
+                reply = c.shrink(text, txn=(args.checker == "txn"),
+                                 realtime=args.realtime,
+                                 model=(None if args.checker == "txn"
+                                        else args.model),
+                                 keyed=args.keyed, raise_on_error=False)
+            elif args.checker in _WL_FAMILIES:
+                reply = c.check_wl(text, args.checker,
+                                   wl=({"n": args.wl_n,
+                                        "total": args.wl_total}
+                                       if args.checker == "bank"
+                                       else None),
+                                   raise_on_error=False)
+            elif args.checker == "txn":
+                reply = c.check(text, txn=True, realtime=args.realtime,
+                                raise_on_error=False)
+            else:
+                reply = c.check(text, model=args.model,
+                                keyed=args.keyed, raise_on_error=False)
+    except (OSError, ValueError) as e:
+        # unreachable daemon / bad HOST:PORT: nothing was checked, and
+        # exit 1 would record a violation that never happened
+        print(f"verifier service error: {e}", file=sys.stderr)
+        return 3
+    if args.shrink and reply.get("ok") and reply.get("minimal_history"):
+        # the reply's EDN is raw: keyed [k v] values re-wrap before the
+        # host re-check, as on the local path
+        mops = parse_history_fast(reply["minimal_history"])
+        if (args.keyed or args.model == "cas-register-comdb2") \
+                and args.checker != "txn":
+            from .ops.kv import wrap_keyed_history
+
+            mops = wrap_keyed_history(mops)
+        _save_shrink_artifacts(mops, reply, args)
+    pprint.pprint({k: v for k, v in reply.items()
+                   if k != "minimal_history"})
+    if not reply.get("ok"):
+        # overload/bad-request: the history was never checked
+        return 3
+    valid = reply.get("valid")
+    if valid is True:
+        return 0
+    if valid == "unknown":
+        return 2
+    return 1
+
+
+def _save_shrink_artifacts(ops, result, args) -> None:
     """Persist minimal.edn + results.edn + the re-rendered SVG into the
     store (one run dir); the SVG re-render re-checks the minimal
-    history on the host and its verdict lands in results.edn."""
+    history on the host and its verdict lands in results.edn.
+    ``result`` is a ShrinkResult (local path) or the daemon's reply
+    (``--service``)."""
     from .harness.store import save_shrink
     from .ops.history import history_to_edn
     from .report import shrink_svg
 
-    ops = list(result.ops)
+    ops = list(ops)
+    checker = "txn" if args.checker == "txn" else "linear"
     rv, svg = shrink_svg.render_minimal(
-        ops, checker=args.checker, model=args.model,
+        ops, checker=checker, model=args.model,
         realtime=args.realtime)
-    d = save_shrink(history_to_edn(ops),
-                    shrink_svg.results_map(result, reverified=rv),
-                    svg=svg, store_root=args.store)
+    if isinstance(result, dict):
+        rm = {"valid?": result.get("valid"), "checker": checker,
+              "seed-ops": result.get("seed_ops"),
+              "minimal-ops": result.get("minimal_ops"),
+              "rounds": result.get("rounds"),
+              "candidates": result.get("candidates"),
+              "dispatches": result.get("dispatches"),
+              "one-minimal?": result.get("one_minimal"),
+              "partial?": result.get("partial"),
+              "reverified-valid?": rv}
+        # the reply flattens ShrinkResult.extra (txn diagnosis etc.)
+        for k in ("txns", "evidence_txns", "anomaly_class",
+                  "seed_class", "anomalies", "note", "cause"):
+            if k in result:
+                rm[k.replace("_", "-")] = result[k]
+    else:
+        rm = shrink_svg.results_map(result, reverified=rv)
+    d = save_shrink(history_to_edn(ops), rm, svg=svg,
+                    store_root=args.store)
     print(f"shrink: {len(ops)} ops -> {d}/minimal.edn", file=sys.stderr)
     if rv is not False:
         # a clean re-check means the minimizer and the offline checker

@@ -26,6 +26,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+from ..utils import compile_guard
+
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"seg_search": _HERE / "seg_search.cu",
            "pair_sort": _HERE / "pair_sort.cu"}
@@ -111,6 +113,7 @@ def _finish(name: str, started) -> None:
         raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
                            f"\n{log}")
     os.replace(tmp, out)
+    compile_guard.note_build()
 
 
 def build(name: str = "seg_search", defines=()) -> Path:

@@ -26,8 +26,13 @@ the ``(3, N)`` (or ``(B, 3, N)``) diagonal. N is pow2-bucketed with a
 floor of ``edges.TXN_N_FLOOR``; pad rows and columns carry no edge, so
 they are inert under closure and read False.
 
-Not ported yet: the JAX package's sharded batch closure (its ``mesh=``
-route) raises :class:`~..checker.linear.EngineNotPorted`.
+Staged: :func:`closure_diag_batch_async` queues the upload (through
+pinned memory), the squarings and a non-blocking copy of the diagonal
+into pinned host memory behind a CUDA event, and its ``finalize`` waits
+on that event alone. The mesh route (``mesh=``, a tuple of D devices)
+splits the batch axis D ways, pads it with all-zero graphs to a power of
+two at least D, and makes one independent call per device — no
+collectives; D = 1 is the single-device call on that device.
 """
 
 from __future__ import annotations
@@ -35,8 +40,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..checker.linear import EngineNotPorted
-from ..utils import next_pow2, resolve_device
+from ..utils import (next_pow2, on_device, readback_async,
+                     resolve_device, upload)
 
 #: device calls of the closure (one per ``closure_diag`` or batch);
 #: tests and ``chip_smoke.py`` hold the single-call rule against it
@@ -95,8 +100,8 @@ def _launch(adj: np.ndarray, device) -> torch.Tensor:
     n = adj.shape[-1]
     if n % 8:
         raise ValueError(f"closure N must be a multiple of 8, got {n}")
-    planes = torch.from_numpy(_pack(adj)).to(dev)
-    out = _diag_kernel(planes, n)
+    with on_device(dev):
+        out = _diag_kernel(upload(_pack(adj), dev), n)
     DISPATCHES += 1
     return out
 
@@ -118,13 +123,32 @@ def closure_diag_batch(adjs: np.ndarray, mesh=None,
 
 def closure_diag_batch_async(adjs: np.ndarray, mesh=None, device=None):
     """Stage the batched closure and return a zero-argument
-    ``finalize()`` producing the (B, 3, N) diagonal mask: the squarings
-    are queued on the card here, and ``finalize`` is the readback."""
-    if mesh is not None:
-        raise EngineNotPorted("closure_diag_batch: the mesh route is not "
-                              "ported yet")
-    out = _launch(adjs, device)
-    return lambda: out.cpu().numpy()
+    ``finalize()`` producing the (B, 3, N) diagonal mask: the upload, the
+    squarings and the copy of the diagonal to pinned host memory are
+    queued on the card here, and ``finalize`` waits on the copy's event.
+
+    ``mesh``: a tuple of D devices (``service.sharding.make_mesh``),
+    ``device`` then unused. D must be a power of two; for D > 1 the
+    batch pads with all-zero graphs to ``max(next_pow2(B), D)`` and
+    shard d's graphs go through one call on ``mesh[d]``; the pads are
+    sliced off."""
+    if mesh is None:
+        return readback_async(_launch(adjs, device))
+    D = len(mesh)
+    if D < 1 or D & (D - 1):
+        raise ValueError(f"mesh size must be a power of two (got {D}) — "
+                         "per-shard shapes must stay pow2")
+    if D == 1:
+        return closure_diag_batch_async(adjs, device=mesh[0])
+    B = adjs.shape[0]
+    b_pad = max(next_pow2(B), D)
+    if b_pad != B:
+        pad = np.zeros((b_pad - B,) + adjs.shape[1:], adjs.dtype)
+        adjs = np.concatenate([adjs, pad])
+    g = b_pad // D
+    fins = [closure_diag_batch_async(adjs[d * g:(d + 1) * g],
+                                     device=mesh[d]) for d in range(D)]
+    return lambda: np.concatenate([f() for f in fins])[:B]
 
 
 def cyclic_layers_device(adj: np.ndarray, realtime: bool = False,

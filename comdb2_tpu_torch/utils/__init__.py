@@ -1,6 +1,8 @@
 """Shared utilities."""
 
-from .device import queued_ms, resolve_device
+from .device import (on_device, queued_ms, readback_async, resolve_device,
+                     upload)
 from .shapes import next_pow2
 
-__all__ = ["next_pow2", "queued_ms", "resolve_device"]
+__all__ = ["next_pow2", "on_device", "queued_ms", "readback_async",
+           "resolve_device", "upload"]

@@ -33,11 +33,11 @@ from comdb2_tpu.ops import op as JO
 from comdb2_tpu.ops import synth as JS
 from comdb2_tpu.ops.packed import pack_history as jax_pack
 
-from comdb2_tpu_torch.checker import EngineNotPorted
 from comdb2_tpu_torch.checker import batch as TB
 from comdb2_tpu_torch.checker import linear_torch as LT
 from comdb2_tpu_torch.checker import seg_kernel as SK
 from comdb2_tpu_torch.models import model as TM
+from comdb2_tpu_torch.service.sharding import make_mesh
 from comdb2_tpu_torch.ops import op as TO
 from comdb2_tpu_torch.ops.packed import pack_history as torch_pack
 
@@ -332,14 +332,27 @@ def _assert_lanes_equal(got, want):
 
 @pytest.mark.parametrize("route", ["flat", "vmap", "mesh"])
 def test_unported_routes_raise(batches, route):
-    """Only ``mesh=`` still raises (the mesh routes are not ported).
-    ``engine="flat"`` and ``engine="vmap"``, which raised until their
-    engines were ported, give the JAX package's verdicts at the same F
-    on the mixed batch (the malformed lane unknown)."""
+    """The routes that raised until they were ported give the JAX
+    package's verdicts at the same F on the mixed batch (the malformed
+    lane unknown): ``engine="flat"`` and ``engine="vmap"``, and
+    ``mesh=`` — the flat engine over a two-slot CPU mesh against the
+    JAX package's over two devices of its CPU mesh, with the same
+    ``flat-sharded`` label."""
     jb, tb = batches
     if route == "mesh":
-        with pytest.raises(EngineNotPorted):
-            TB.check_batch(tb, device="cpu", mesh=object())
+        import jax
+        from jax.sharding import Mesh
+
+        info, jinfo = {}, {}
+        got = TB.check_batch(tb, F=512, engine="flat", info=info,
+                             mesh=make_mesh(2, device="cpu"))
+        want = JB.check_batch(jb, F=512, engine="flat", info=jinfo,
+                              mesh=Mesh(np.asarray(jax.devices()[:2]),
+                                        ("batch",)))
+        _assert_lanes_equal(got, want)
+        assert info["engine"] == jinfo["engine"] == "flat-sharded"
+        assert info["batch"] == jinfo["batch"]
+        assert got[0][-1] == LT.UNKNOWN
         return
     info, jinfo = {}, {}
     got = TB.check_batch(tb, F=512, engine=route, info=info, device="cpu")

@@ -26,7 +26,6 @@ from comdb2_tpu.ops import synth as JS
 from comdb2_tpu.utils import intervals as JINT
 
 from comdb2_tpu_torch import filetest
-from comdb2_tpu_torch.checker import EngineNotPorted
 from comdb2_tpu_torch.checker import checkers as TC
 from comdb2_tpu_torch.checker import independent as TI
 from comdb2_tpu_torch.checker import wgl as TWGL
@@ -323,8 +322,11 @@ def test_independent_checker_goes_through_one_batch_launch(monkeypatch):
 
 
 def test_independent_checker_errors_it_does_not_swallow(monkeypatch):
-    """A device fault propagates; a shape the port cannot take yet, and
-    a malformed key, re-check each key alone; ``mesh=`` raises."""
+    """A device fault propagates, whatever its type (no route raises
+    ``EngineNotPorted`` any more, and nothing is caught for it); a
+    malformed key re-checks each key alone; ``mesh=``, which raised
+    until it was ported, gives the JAX package's answer over its CPU
+    mesh."""
     from comdb2_tpu_torch.checker import batch as TB
 
     h = _keyed_history(TO, TI.tuple_, bad=(1,))
@@ -338,21 +340,35 @@ def test_independent_checker_errors_it_does_not_swallow(monkeypatch):
         TI.IndependentChecker(lin).check(TEST, TM.cas_register(), h)
 
     def not_ported(pb, **kw):
-        raise EngineNotPorted("flat")
+        raise NotImplementedError("flat")
 
     monkeypatch.setattr(TB, "check_batch", not_ported)
-    r = TI.IndependentChecker(lin).check(TEST, TM.cas_register(), h)
-    assert r["failures"] == [1]
-    assert all(v.get("backend") != "device-batch"
-               for v in r["results"].values())
+    with pytest.raises(NotImplementedError):
+        TI.IndependentChecker(lin).check(TEST, TM.cas_register(), h)
 
     monkeypatch.setattr(TB, "check_batch", fault)
     torn = h + [TO.ok(999, "read", TI.tuple_(0, 1))]   # ok without invoke
     r = TI.IndependentChecker(lin).check(TEST, TM.cas_register(), torn)
     assert r["results"][0]["valid?"] == "unknown"
-    with pytest.raises(EngineNotPorted):
-        TI.IndependentChecker(lin, mesh=object()).check(
-            TEST, TM.cas_register(), h)
+    monkeypatch.undo()
+
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from comdb2_tpu_torch.service.sharding import make_mesh
+
+    got = TI.IndependentChecker(lin, mesh=make_mesh(2, device="cpu")).check(
+        TEST, TM.cas_register(), h)
+    jh = _keyed_history(JO, JI.tuple_, bad=(1,))
+    want = JI.IndependentChecker(
+        JC.Linearizable(),
+        mesh=Mesh(np.asarray(jax.devices()[:2]), ("batch",))).check(
+        TEST, JM.cas_register(), jh)
+    assert got["valid?"] == want["valid?"] is False
+    assert got["failures"] == want["failures"] == [1]
+    assert {k: v["valid?"] for k, v in got["results"].items()} == \
+        {k: v["valid?"] for k, v in want["results"].items()}
 
 
 # --- wgl -----------------------------------------------------------------------

@@ -26,6 +26,7 @@ from comdb2_tpu_torch.ops.packed import pack_history
 from comdb2_tpu_torch.ops.synth import (concurrent_writes, mutate,
                                          register_history)
 from comdb2_tpu_torch.ops.synth_columnar import wide_register_batch_packed
+from comdb2_tpu_torch.utils import compile_guard as CG
 from comdb2_tpu_torch.utils import next_pow2
 
 pytestmark = pytest.mark.cuda
@@ -61,13 +62,13 @@ def test_kernel_matches_plain_version(cuda, case):
     ws = torch.from_numpy(SK.initial_frontier(spec)).to(cuda)
     stat = torch.from_numpy(SK._init_stat()).to(cuda)
     table = torch.from_numpy(SK.pack_table(mm.succ)).to(cuda)
-    before = SK.LAUNCHES
+    before = CG.LAUNCHES["seg_search"]
     got = SK.seg_search(seg, 0, mm.n_transitions, ws, stat, table, spec)
     torch.cuda.synchronize()
-    assert SK.LAUNCHES == before + 1
+    assert CG.LAUNCHES["seg_search"] == before + 1
     want = SK.seg_search_reference(seg, 0, mm.n_transitions, ws, stat,
                                    table, spec)
-    assert SK.LAUNCHES == before + 1
+    assert CG.LAUNCHES["seg_search"] == before + 1
     assert got[:2] == want[:2]
     if got[0] != SK.UNKNOWN:
         assert got[2] == want[2]
@@ -206,11 +207,11 @@ def test_stream_kernel_matches_plain_version(cuda, groups):
     table = torch.from_numpy(SK.pack_table(tb.memo.succ))
     n_hist = max(len(g) for g in plan)
     work = torch.zeros(len(plan), dtype=torch.int64, device=cuda)
-    before = SK.STREAM_LAUNCHES
+    before = CG.LAUNCHES["seg_search_stream"]
     got = SK.seg_search_stream(seg.to(cuda), sizes["n_transitions"],
                                table.to(cuda), spec, n_hist, work=work)
     torch.cuda.synchronize()
-    assert SK.STREAM_LAUNCHES == before + 1
+    assert CG.LAUNCHES["seg_search_stream"] == before + 1
     want = SK.seg_search_stream(seg, sizes["n_transitions"], table, spec,
                                 n_hist)
     assert torch.equal(got.cpu(), want)
@@ -326,10 +327,10 @@ T = PSORT.SMEM_N
     (3, 1, "random")])
 def test_pair_sort_kernel_matches_plain_version(cuda, B, N, rows):
     hi, lo = _sort_rows(B, N, rows)
-    before = PSORT.LAUNCHES
+    before = CG.LAUNCHES["pair_sort"]
     got = PSORT.pair_sort(hi.to(cuda), lo.to(cuda))
     torch.cuda.synchronize()
-    assert PSORT.LAUNCHES == before + 1
+    assert CG.LAUNCHES["pair_sort"] == before + 1
     want = PSORT.pair_sort_reference(hi, lo)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
@@ -372,12 +373,12 @@ def test_pair_sort_library_shape_and_phases(cuda):
 
 def test_check_batch_on_the_card_matches_cpu(cuda):
     tb = _mixed_batch()
-    before = PSORT.LAUNCHES
+    before = CG.LAUNCHES["pair_sort"]
     info: dict = {}
     got = TB.check_batch(tb, F=1024, device="cuda", info=info)
     assert info["engine"] == "stream"
     assert info["escalated"]["engine"] == "keys"
-    assert PSORT.LAUNCHES > before
+    assert CG.LAUNCHES["pair_sort"] > before
     want = TB.check_batch(tb, F=1024, device="cpu")
     for a, b in zip(got, want):
         assert a.tolist() == b.tolist()
@@ -587,7 +588,7 @@ def test_stream_kernel_rung_on_the_card_matches_cpu(cuda):
         p_info=0.0), values=5)
     card = StreamSession(engine="kernel")
     host = StreamSession(engine="kernel", device="cpu")
-    before = SK.LAUNCHES
+    before = CG.LAUNCHES["seg_search"]
     for i in range(0, len(h), 40):
         d0 = TE.DISPATCHES
         oc, oh = card.append(h[i:i + 40]), host.append(h[i:i + 40])
@@ -597,7 +598,7 @@ def test_stream_kernel_rung_on_the_card_matches_cpu(cuda):
             assert torch.equal(card._eng.ws.cpu(), host._eng.ws)
             assert torch.equal(card._eng.stat.cpu(), host._eng.stat)
     assert card.finalize_input() == host.finalize_input()
-    assert SK.LAUNCHES > before
+    assert CG.LAUNCHES["seg_search"] > before
     assert card._eng.ws.is_cuda
 
 
@@ -626,3 +627,30 @@ def test_stream_fused_beat_on_the_card_matches_solo(cuda):
     for s, t in zip(fused, solo):
         assert torch.equal(s._eng.ws, t._eng.ws)
         assert torch.equal(s._eng.stat, t._eng.stat)
+
+
+def test_service_ring_finishes_a_dispatch_once_its_event_polls_done(cuda):
+    """On the card a staged check dispatch finishes on the first pump
+    after its readback event polls done, while another batch is still
+    forming (the ring's own rules would hold it), and its timed launch
+    adds card time to the compile guard's count."""
+    from comdb2_tpu_torch.ops.history import history_to_edn
+    from comdb2_tpu_torch.service import VerifierCore
+
+    core = VerifierCore(device=cuda, batch_cap=4)
+    text = history_to_edn(register_history(random.Random(950), n_procs=3,
+                                           n_events=60, p_info=0.0))
+    CG.time_launches()
+    try:
+        ms0 = CG.card_ms()
+        for i in range(5):
+            core.submit({"op": "check", "id": i, "history": text}, 0.0)
+        assert core.inflight() == 1      # the 4th filled the cap
+        torch.cuda.synchronize()
+        done = core.pump(0.0001)         # the 5th is still forming
+        assert sorted(p.rid for p, _ in done) == [0, 1, 2, 3]
+        assert all(r["valid"] is True for _, r in done)
+        assert core.status()["ring_polled"] == 1
+        assert CG.card_ms() > ms0
+    finally:
+        CG.time_launches(False)

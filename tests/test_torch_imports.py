@@ -28,6 +28,14 @@ STREAM_SLICE = ("stream", "stream.engine", "stream.session",
                 "stream.ingest", "stream.segment", "stream.checkpoint",
                 "stream.wl", "stream.manager")
 
+#: the serving slice's subpackages and modules
+SERVICE_SLICE = ("service", "service.core", "service.daemon",
+                 "service.client", "service.supervisor",
+                 "service.protocol", "service.bucketing",
+                 "service.sharding", "service.__main__", "control",
+                 "control.pmux", "obs.metrics", "parallel",
+                 "utils.compile_guard")
+
 
 def _forbidden(name: str) -> bool:
     return (name in ("jax", "comdb2_tpu")
@@ -53,7 +61,8 @@ def test_package_has_the_slice_modules():
               "checker.wl.batch", "checker.wl.synth", "txn.edges",
               "txn.scc", "txn.closure_torch", "txn.counterexample",
               "txn.check", "txn.adapters", "checker.brute",
-              "ops.native_loader") + SHRINK_SLICE + STREAM_SLICE:
+              "ops.native_loader") + SHRINK_SLICE + STREAM_SLICE \
+            + SERVICE_SLICE:
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -96,6 +105,7 @@ def test_no_module_imports_jax_or_the_jax_package():
                .replace(".__init__", "") for p in PKG.rglob("*.py")}
     assert set(SHRINK_SLICE) <= scanned
     assert set(STREAM_SLICE) <= scanned
+    assert set(SERVICE_SLICE) <= scanned
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

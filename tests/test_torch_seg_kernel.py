@@ -28,6 +28,7 @@ from comdb2_tpu.ops.packed import pack_history as jax_pack
 
 from comdb2_tpu_torch import convert
 from comdb2_tpu_torch.checker import seg_kernel as SK
+from comdb2_tpu_torch.utils import compile_guard as CG
 
 
 @pytest.fixture()
@@ -153,7 +154,7 @@ def test_reference_contract_on_a_chunk_boundary():
     stat = torch.from_numpy(SK._init_stat())
     table = torch.from_numpy(SK.pack_table(mm.succ))
     T = mm.n_transitions
-    launches = SK.LAUNCHES
+    launches = CG.LAUNCHES["seg_search"]
     one = SK.seg_search(seg, 0, T, ws, stat, table, spec)
     half = seg.shape[0] // 2
     st, fa, n, ws1 = SK.seg_search(seg[:half], 0, T, ws, stat, table,
@@ -164,7 +165,7 @@ def test_reference_contract_on_a_chunk_boundary():
     assert one[:3] == two[:3]
     assert SK.decode_frontier(spec, one[3], p) == \
         SK.decode_frontier(spec, two[3], p)
-    assert SK.LAUNCHES == launches   # CPU tensors never launch
+    assert CG.LAUNCHES["seg_search"] == launches   # CPU tensors never launch
 
 
 def test_wrapper_rejects_bad_inputs():

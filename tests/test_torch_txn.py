@@ -182,11 +182,25 @@ def test_closure_of_the_reference_graph():
 
 
 def test_closure_mesh_route_is_not_ported():
-    from comdb2_tpu_torch.checker import EngineNotPorted
+    """The mesh route, which raised until it was ported: three graphs
+    over a two-slot CPU mesh (padded to four, one call per slot) give
+    the JAX package's sharded closure over two CPU devices."""
+    import jax
+    from jax.sharding import Mesh
 
-    with pytest.raises(EngineNotPorted):
-        TC.closure_diag_batch(np.zeros((2, 4, 16, 16), bool),
-                              mesh=object(), device="cpu")
+    from comdb2_tpu.txn import closure_jax as JCJ
+    from comdb2_tpu_torch.service.sharding import make_mesh
+
+    rng = np.random.default_rng(4)
+    adjs = rng.random((3, 4, 16, 16)) < 0.08
+    d0 = TC.DISPATCHES
+    got = TC.closure_diag_batch(adjs, mesh=make_mesh(2, device="cpu"))
+    assert TC.DISPATCHES - d0 == 2            # one call per device
+    want = JCJ.closure_diag_batch(
+        adjs, mesh=Mesh(np.asarray(jax.devices()[:2]), ("batch",)))
+    assert got.shape == want.shape == (3, 3, 16)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, TC.closure_diag_batch(adjs, device="cpu"))
 
 
 def test_squarings_reach_a_path_of_every_length():
