@@ -10,9 +10,10 @@ per source, all at once), drives the port's main paths through their
 public entry points (``checker.analysis``, ``filetest``,
 ``checker.batch.check_batch`` with every engine, the checker layer's
 ``txn.check_txn``, ``checker.wl.check_wl_batch`` and
-``IndependentChecker``, ``shrink.minimize``, and the streaming
+``IndependentChecker``, ``shrink.minimize``, the streaming
 sessions ``stream.StreamSession``, ``stream.engine.MegaBatch``,
-``stream.wl`` and ``filetest --follow``) at full size, holds every kernel against
+``stream.wl`` and ``filetest --follow``, the verifier service and the
+Jepsen harness's ``harness.core.run``) at full size, holds every kernel against
 its plain PyTorch version on the same card tensors, and times both. It
 imports nothing of JAX and nothing of the JAX package, and falls back
 to nothing: any failure exits non-zero before the result line.
@@ -71,7 +72,8 @@ The checker layer, counted as a third path:
   G1c and a G2-item history appended on fresh processes and keys,
   realtime on and off: verdict maps and decoded cycles equal to
   ``backend="host"``'s, one closure call each;
-- (w) ``check_wl_batch`` on 512 lanes per family at the top rungs
+- (w) ``check_wl_batch`` on 256 lanes per family at the top rungs
+  (the batch padded to 512)
   (bank: 512 reads, 512 transfers, 8 accounts; sets: 8000 elements;
   dirty: 8000 values, 512 reads of 16 nodes), valid and with its
   violation twin (``total``, ``lost``, ``dirty``, planted in a copy of
@@ -178,6 +180,53 @@ oracle after the path's counts):
   each lane of one fused (v5) beat bit-equal to
   ``seg_search_reference`` on the same card tensors.
 
+The verifier service, counted as a seventh path (``service``): (sv1) a
+``python -m comdb2_tpu_torch.service --backend cuda`` daemon on the card
+and a burst of 256 check requests from 64 connections, every reply
+equal to ``check_batch``; (sv2) txn, bank, stream-session, shrink and
+overflowing requests on the same daemon; (sv3) ``VerifierCore`` in
+process; (sv4) ``check_batch(mesh=make_mesh(1))``; (sv5) ``filetest
+--service``; (sv6) a card-less ``--backend cuda`` daemon that must exit
+before its ready line.
+
+The Jepsen harness, counted as an eighth path (``harness``): the port's
+``harness.core.run`` in process, ``nodes = []``, every test built with
+its default device (the card), each test's store in a temporary
+directory; every recorded history is re-checked by the same checkers
+built at ``device="cpu"`` (the plain versions; (x2)'s in a child process
+that overlaps the rest of the script), with equal verdicts, per-key
+results and fail indices, and no result may hold an ``error``:
+
+- (x1) ``workloads.comdb2.register_tester()`` at the reference's
+  settings (concurrency 10, [w cas cas r] staggered 0.1 s on key 1, 10
+  s, ``MemDB``): VALID; one key, so ``IndependentChecker`` checks it
+  alone, through ``seg_search``'s single-history mode;
+- (x2) the same over ``MemDB(chaos_unknown=0.01, chaos_fail=0.05)``: its
+  info ops pend forever; VALID, with the info count, the effective slots
+  and the engine of the answer;
+- (x3) the ``jepsen.independent`` shape: ``concurrent_generator(5,
+  itertools.count(), ...)`` on 100 clients, 200 ops of [w cas cas r] per
+  key, no stagger, 10 s, with the first read of key 3 answered 99, a
+  value no write puts (``_planted_read``): INVALID on key 3 alone, every
+  key from one ``seg_search[stream]`` launch and key 3 re-checked alone
+  through the single-history mode, at the planted read;
+- (x4) (x1) with one read answered stale (``_StaleRead``: no other call
+  open while it is): INVALID on key 1 from the single-history kernel,
+  with ``linear.svg``, ``timeline.html`` and the perf SVGs in the store
+  (copied to ``chiprun_out/harness_x4/``);
+- (x5) ``sets_test`` over a lossy backend and ``g2_test`` over a broken
+  one: both INVALID.
+
+Each run reports its harness wall (generation and the SUT), its check's
+wall, the card's milliseconds in its launches (CUDA events,
+``compile_guard.time_launches``), its launches, its history's size and
+each key's engine and effective slots. Every segment-search launch of
+the path is copied (``_LaunchLog``) and held bit-equal to
+``seg_search_reference``: each single-history launch on the same card
+tensors; each stream launch's longest group and its groups with an
+INVALID lane on the same card tensors, and every group on CPU copies of
+them.
+
 In the single-history path, (e3) is (e) again with ``filetest --trace``:
 the span totals per stage (parse, pack, device with segments / kernel /
 decode inside, finalize) and the parser that ran — the C++ loader when
@@ -231,6 +280,7 @@ A longer record goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -251,7 +301,7 @@ D_PRIME = 512          # (d)'s segments that (d') runs on CPU tensors too
 BF16_FLOPS = 989e12    # the H100's dense bf16 tensor-core peak (SXM)
 CLOSURE_N, CLOSURE_BATCH, CLOSURE_BATCH_N = 4096, 8, 1024   # (t)
 TXN_COUNT = 2400       # (t2): past check_txn's DEVICE_THRESHOLD
-WL_LANES = 512         # (w): the top WL_BATCH rung
+WL_LANES = 256         # (w): lanes per family, padded to the top rung
 KEYS, KEY_EVENTS = 256, 2000                                 # (i)
 J_LANES, J_EVENTS, J_OVERFLOW, J_F = 512, 2000, 8, 8192     # (j), (j2)
 S10_EVENTS, S_EVENTS, SHRINK_F = 10_000, 100_000, 1024      # (s10), (s)
@@ -972,7 +1022,7 @@ def _plant(family, histories):
 
 
 def _wl_requests(dev, rec):
-    """(w): the three families at the top rungs, 512 lanes each, valid
+    """(w): the three families at the top rungs, WL_LANES each, valid
     and with their violation twins; every lane against the host oracle,
     one device call per batch; the device program timed alone."""
     import torch
@@ -1033,6 +1083,8 @@ def _wl_requests(dev, rec):
             _expect(n_valid == (len(hs) if viol is None else 0),
                     f"(w) {fam} {key}: {n_valid} valid lanes")
             if viol is None:
+                # the device program alone, at the batch's padded rung
+                hs = hs + [hs[0]] * (W.WL_BATCH[-1] - len(hs))
                 dims = W.wl_dims(hs, fam, model)
                 if fam == "bank":
                     cols = W.encode_bank(hs, model, **dims)
@@ -3234,6 +3286,750 @@ def _service_path(dev, h_a, h_e, zero_counts, counts):
     return rec, launches
 
 
+HARNESS_LIMIT_S = 10.0    # (x1)-(x4): the reference register test's limit
+X3_CLIENTS, X3_PER_KEY, X3_GROUP = 100, 200, 5    # (x3): jepsen.independent
+X2_CHAOS = {"chaos_unknown": 0.01, "chaos_fail": 0.05, "seed": 2026}
+X3_PLANT = (3, 99)        # (x3): the key, and a value no write puts (0-4)
+# torch threads of path 8's plain re-checks: with more, a re-check's
+# threads wait on each other when the host's cores are busy
+# (scripts/torch_recheck_threads.py)
+RECHECK_THREADS = 2
+
+
+class _TimedChecker:
+    """A test's checker with its wall clock kept: ``core.run``'s check
+    (``check_safe``) runs through it, so the run's wall splits into the
+    harness (generation and the SUT) and the check."""
+
+    def __init__(self, inner, sync):
+        self.inner = inner
+        self.sync = sync
+        self.wall_s = None
+
+    def check(self, test, model, history, opts=None):
+        t0 = time.perf_counter()
+        try:
+            return self.inner.check(test, model, history, opts)
+        finally:
+            self.sync()
+            self.wall_s = time.perf_counter() - t0
+
+
+class _StaleRead:
+    """(x4): one stale read in (x1)'s run. A gate around the test's
+    generator picks a read once ``after`` ops were drawn and holds it
+    back until every other worker has finished its op and waits at the
+    gate; the client wrapper then answers that read with the latest value
+    an earlier read returned that differs from the register's current
+    one (a value the register held before), and the others draw again
+    once the reader does. No other call is open while that read is, so
+    no linearization explains it. If the others do not come to the gate
+    within ``hold_s`` (a phase barrier), the gate lets the read through
+    unchanged and waits for a later one."""
+
+    def __init__(self, concurrency, after=100, hold_s=2.0):
+        import threading
+
+        self.cv = threading.Condition()
+        self.concurrency = concurrency
+        self.after = after
+        self.hold_s = hold_s
+        self.draws = 0
+        self.reader = None        # the held read's worker thread
+        self.state = "armed"      # -> "holding" -> "reading" -> "done"
+        self.idle = set()         # other worker threads at the gate or gone
+        self.seen = []            # values that ok reads returned
+        self.lie = None           # {process, stale, current}
+
+    def generator(self, inner):
+        from comdb2_tpu_torch.harness import generator as G
+
+        gate = self
+
+        class Gate(G.Generator):
+            def op(self, test, process):
+                return gate.draw(inner, test, process)
+        return Gate()
+
+    def draw(self, inner, test, process):
+        import threading
+
+        from comdb2_tpu_torch.harness import generator as G
+
+        if process == G.NEMESIS:
+            return G.op(inner, test, process)
+        me = threading.get_ident()
+        with self.cv:
+            if me == self.reader and self.state == "reading":
+                self.state = "done"
+                self.cv.notify_all()
+            while self.state in ("holding", "reading") and me != self.reader:
+                self.idle.add(me)
+                self.cv.notify_all()
+                self.cv.wait()
+            self.idle.discard(me)
+        o = G.op(inner, test, process)
+        with self.cv:
+            if o is None:
+                self.idle.add(me)
+                self.cv.notify_all()
+                return None
+            self.draws += 1
+            if self.state == "armed" and self.draws >= self.after \
+                    and o.get("f") == "read":
+                self.state, self.reader = "holding", me
+                deadline = time.monotonic() + self.hold_s
+                while len(self.idle) < self.concurrency - 1 \
+                        and time.monotonic() < deadline:
+                    self.cv.wait(0.05)
+                self.state = ("reading" if len(self.idle)
+                              >= self.concurrency - 1 else "armed")
+                if self.state == "armed":
+                    self.reader = None
+                    self.cv.notify_all()
+        return o
+
+    def client(self, inner):
+        import threading
+
+        from comdb2_tpu_torch.harness.client import Client
+        from comdb2_tpu_torch.ops.kv import tuple_
+
+        gate = self
+
+        class StaleRead(Client):
+            def __init__(self, c):
+                self.c = c
+
+            def setup(self, test, node):
+                return StaleRead(self.c.setup(test, node))
+
+            def invoke(self, test, op):
+                if op["f"] == "read" and gate.state == "reading" \
+                        and gate.reader == threading.get_ident() \
+                        and gate.lie is None:
+                    k = op["value"][0]
+                    rows = self.c.conn.select("register",
+                                              lambda r: r["id"] == k)
+                    cur = rows[0]["val"] if rows else None
+                    stale = next((v for v in reversed(gate.seen)
+                                  if v is not None and v != cur), None)
+                    gate.lie = {"process": op["process"], "stale": stale,
+                                "current": cur}
+                    if stale is not None:
+                        return {**op, "type": "ok",
+                                "value": tuple_(k, stale)}
+                out = self.c.invoke(test, op)
+                if op["f"] == "read" and out["type"] == "ok":
+                    with gate.cv:
+                        gate.seen.append(out["value"][1])
+                return out
+
+            def teardown(self, test):
+                self.c.teardown(test)
+        return StaleRead(inner)
+
+
+def _lossy_connect():
+    """(x5): a ``MemConn`` whose every 5th write transaction is
+    acknowledged but loses its buffered writes at commit."""
+    from comdb2_tpu_torch.workloads.sqlish import MemConn, MemDB
+
+    db = MemDB()
+    db.counter = 0
+
+    class LossyConn(MemConn):
+        def transaction(self):
+            ctx = super().transaction()
+            conn_db = self.db
+
+            class MaybeDrop:
+                def __enter__(s):
+                    s.t = ctx.__enter__()
+                    return s.t
+
+                def __exit__(s, *a):
+                    if a[0] is None and s.t.writes:
+                        conn_db.counter += 1
+                        if conn_db.counter % 5 == 0:
+                            s.t.writes.clear()
+                    return ctx.__exit__(*a)
+            return MaybeDrop()
+    return lambda: LossyConn(db)
+
+
+def _broken_g2_client():
+    """(x5): predicate reads that miss concurrent inserts, so both of a
+    key's G2 inserts commit."""
+    from comdb2_tpu_torch.harness.client import Client
+
+    class BrokenG2(Client):
+        def invoke(self, test, op):
+            return {**op, "type": "ok"}
+    return BrokenG2()
+
+
+def _x3_generator(limit_s):
+    """(x3): ``jepsen.independent``'s shape — ``concurrent_generator(5,
+    itertools.count(), ...)``, each key ``X3_PER_KEY`` ops of [w cas cas
+    r] with no stagger, for ``limit_s`` seconds."""
+    import itertools
+
+    from comdb2_tpu_torch.harness import generator as G
+    from comdb2_tpu_torch.harness import independent_gen as IG
+
+    def w(test=None, process=None):
+        return {"type": "invoke", "f": "write",
+                "value": random.randrange(5)}
+
+    def cas(test=None, process=None):
+        return {"type": "invoke", "f": "cas",
+                "value": (random.randrange(5), random.randrange(5))}
+
+    def r(test=None, process=None):
+        return {"type": "invoke", "f": "read", "value": None}
+
+    return G.time_limit(limit_s, G.clients(IG.concurrent_generator(
+        X3_GROUP, itertools.count(),
+        lambda k: G.limit(X3_PER_KEY, G.mix([w, cas, cas, r])))))
+
+
+def _lin_view(results):
+    """The linearizable part of a register test's results: its verdict,
+    its failing keys and each key's (verdict, fail index)."""
+    lin = results["linearizable"]
+    return {"valid?": results["valid?"], "lin": lin["valid?"],
+            "failures": lin["failures"],
+            "keys": {k: (v["valid?"], v.get("op-index"))
+                     for k, v in lin["results"].items()}}
+
+
+def _ladder(results):
+    """Each key of a register test's results that was checked alone:
+    its engine, the frontier capacity its answer took (the seg2 ladder
+    re-runs the history from the start at each rung it climbs) and the
+    analysis's seconds."""
+    return {k: [v.get("engine"), v.get("frontier_capacity"),
+                round(v.get("time_s") or 0.0, 3)]
+            for k, v in results["linearizable"]["results"].items()
+            if v.get("backend") != "device-batch"}
+
+
+def _has_error(x) -> bool:
+    if isinstance(x, dict):
+        return "error" in x or any(_has_error(v) for v in x.values())
+    return False
+
+
+def _key_answers(results, history):
+    """Per key of a register test's linearizable results: the engine of
+    its answer and its effective slots (the analysis's own where a key
+    was checked alone; for a key answered by the batch launch, the
+    stream kernel and the slots its history renames to)."""
+    from comdb2_tpu_torch.checker import linear_torch as LT
+    from comdb2_tpu_torch.checker.independent import subhistories
+    from comdb2_tpu_torch.ops.packed import pack_history
+
+    lin = results["linearizable"]["results"]
+    batch = [k for k, v in lin.items() if v.get("backend") == "device-batch"]
+    subs = ({k: v for k, v in subhistories(list(lin), history).items()
+             if k in batch} if batch else {})
+    engines, slots = {}, {}
+    for k, v in lin.items():
+        if k in subs:
+            eng = "seg_search[stream]"
+            _, p = LT.remap_slots(LT.make_segments(pack_history(subs[k])))
+        else:
+            eng = v.get("engine", v.get("backend"))
+            p = v.get("effective_slots")
+        engines[eng] = engines.get(eng, 0) + 1
+        slots[p] = slots.get(p, 0) + 1
+    return engines, slots
+
+
+@contextlib.contextmanager
+def _torch_threads(n):
+    """Run the block at ``n`` torch threads."""
+    import torch
+
+    was = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(was)
+
+
+def _planted_read(inner, key, value):
+    """(x3): a client wrapper that answers the first read of ``key``
+    with ``value``, which no write puts, so that key's history has no
+    linearization; ``planted["op"]`` is the completion it returned."""
+    import threading
+
+    from comdb2_tpu_torch.harness.client import Client
+    from comdb2_tpu_torch.ops.kv import tuple_
+
+    planted = {"op": None}
+    lock = threading.Lock()
+
+    class PlantedRead(Client):
+        def __init__(self, c):
+            self.c = c
+
+        def setup(self, test, node):
+            return PlantedRead(self.c.setup(test, node))
+
+        def invoke(self, test, op):
+            if op["f"] == "read" and op["value"][0] == key:
+                with lock:
+                    if planted["op"] is None:
+                        planted["op"] = {**op, "type": "ok",
+                                         "value": tuple_(key, value)}
+                        return planted["op"]
+            return self.c.invoke(test, op)
+
+        def teardown(self, test):
+            self.c.teardown(test)
+    return PlantedRead(inner), planted
+
+
+class _LaunchLog:
+    """Path 8's segment-search launches: while installed, every launch
+    of either mode (``seg_kernel._launch``) is logged under the run that
+    made it, with copies of its inputs taken before it and of its
+    outputs after it (``(ws_out, stat_out)``, or the stream mode's
+    ``results``), for :func:`_hold_launches`."""
+
+    def __init__(self):
+        self.run = None
+        self.launches = []        # (run, inputs, outputs) per launch
+        self._real = None
+
+    def install(self):
+        from comdb2_tpu_torch.checker import seg_kernel as SK
+
+        real = self._real = SK._launch
+        log = self
+
+        def logged(seg, off, stride, ws, stat, table, spec, results=None,
+                   **kw):
+            inputs = (seg.clone(), off, stride, ws.clone(), stat.clone(),
+                      table.clone(), spec)
+            ws_out, stat_out = real(seg, off, stride, ws, stat, table, spec,
+                                    results=results, **kw)
+            log.launches.append((log.run, inputs, (
+                (ws_out.clone(), stat_out.clone()) if results is None
+                else results.clone())))
+            return ws_out, stat_out
+        SK._launch = logged
+
+    def uninstall(self):
+        from comdb2_tpu_torch.checker import seg_kernel as SK
+
+        SK._launch = self._real
+
+
+def _hold_launches(log):
+    """Path 8's launches against the plain version: each single-history
+    launch bit-equal (status, fail, n, frontier) to
+    ``seg_search_reference`` on the same card tensors; each stream
+    launch's longest group and its groups with an INVALID lane on the
+    same card tensors, and every group's (status, fail, n) on CPU copies
+    of them. Returns (max abs error, per-run record, plain ms)."""
+    import torch
+
+    from comdb2_tpu_torch.checker import seg_kernel as SK
+
+    err, held, t0 = 0, {}, time.perf_counter()
+    for run, (seg, off, stride, ws, stat, table, spec), out in log.launches:
+        r = held.setdefault(run, {"single": [], "stream": []})
+        if not isinstance(out, torch.Tensor):
+            ws_k, st_k = out
+            status, fail, n, ws_p = SK.seg_search_reference(
+                seg, off, stride, ws, stat, table, spec)
+            st_p = [status, fail, n, int(stat[3])]
+            _expect(torch.equal(ws_p, ws_k) and st_p == st_k.tolist(),
+                    f"({run}) a single-history launch: kernel "
+                    f"{st_k.tolist()} vs plain {st_p}, frontier "
+                    f"{'equal' if torch.equal(ws_p, ws_k) else 'differs'}")
+            r["single"].append({"rows": int(seg.shape[0]), "off": off,
+                                "status": status, "fail": fail, "n": n})
+            continue
+        rows = (seg[:, :, 0] != -1).sum(1)
+        lanes = (out[:, :, 0] == SK.INVALID).nonzero().tolist()
+        on_card = sorted({int(rows.argmax())} | {g for g, _ in lanes})
+        for g in on_card:
+            want = torch.zeros_like(out[g])
+            SK.seg_search_reference(seg[g], 0, stride, ws[g], stat[g],
+                                    table, spec, results=want)
+            err = max(err, int((out[g].long() - want.long()).abs().max()))
+        seg_c, ws_c, st_c, tab_c = (x.cpu() for x in (seg, ws, stat, table))
+        want = torch.zeros(out.shape, dtype=torch.int32)
+        with _torch_threads(RECHECK_THREADS):
+            for g in range(seg.shape[0]):
+                SK.seg_search_reference(seg_c[g], 0, stride, ws_c[g],
+                                        st_c[g], tab_c, spec,
+                                        results=want[g])
+        err = max(err, int((out.cpu().long() - want.long()).abs().max()))
+        # an INVALID lane's fail, less its history's first stream row
+        # (the row after its RESET): its segment in the history alone
+        resets = [(seg[g, :, 0] == SK.RESET).nonzero().flatten().tolist()
+                  for g, _ in lanes]
+        r["stream"].append({
+            "groups": int(seg.shape[0]), "rows": int(seg.shape[1]),
+            "on_card": on_card,
+            "invalid": [[g, h, *out[g, h].tolist(),
+                         int(out[g, h, 1]) - rs[h] - 1]
+                        for (g, h), rs in zip(lanes, resets)]})
+    _expect(err == 0, f"path 8's launches differ from the plain version: "
+                      f"max diff {err}, {held}")
+    return err, held, (time.perf_counter() - t0) * 1e3
+
+
+def _register_view(results):
+    """:func:`_lin_view` through JSON, as a child process reports it."""
+    return json.loads(json.dumps(_lin_view(results)))
+
+
+def _recheck_saved(store_root, name, start_time):
+    """In a child process: load a register run the store saved and
+    check its history with ``register_tester``'s checkers built at
+    ``device="cpu"``; returns the view, whether a result holds an
+    ``error``, the keys checked alone and the wall."""
+    import torch
+
+    from comdb2_tpu_torch.harness import store
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.ops.kv import wrap_keyed_history
+    from comdb2_tpu_torch.workloads import comdb2 as W
+
+    torch.set_num_threads(RECHECK_THREADS)
+    t0 = time.perf_counter()
+    saved = store.load(name, start_time, store_root)
+    h = wrap_keyed_history(saved["history"])
+    res = W.register_tester(device="cpu")["checker"].check(
+        {"name": name, "dir": os.path.join(store_root, "cpu-recheck")},
+        cas_register(), h)
+    return {"view": _register_view(res), "error": _has_error(res),
+            "ladder": _ladder(res), "events": len(h),
+            "wall_s": time.perf_counter() - t0}
+
+
+class _DeferredRecheck:
+    """(x2)'s plain-version re-check in a child process, from the
+    history the run's store saved: it overlaps the rest of the script,
+    and :meth:`finish` waits for it and compares. Its time depends on
+    the history, through the rung of the seg2 ladder it climbs to (the
+    card's rung too, up to 65536): 17-346 s on an H100 host's CPU. The
+    child is killed if the script exits first."""
+
+    def __init__(self, name, out, r):
+        import atexit
+
+        self.name, self.r = name, r
+        self.want = _register_view(out["results"])
+        self.store = out["store-root"]
+        code = ("import json, sys; sys.path.insert(0, {here!r}); "
+                "import chip_smoke as CS; print(json.dumps("
+                "CS._recheck_saved({root!r}, {name!r}, {ts!r})))"
+                ).format(here=HERE, root=self.store, name=out["name"],
+                         ts=out["start-time"])
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", code],
+                                     cwd=HERE, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+        atexit.register(self.kill)
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def finish(self, timeout_s=900.0):
+        import shutil
+
+        try:
+            out, err = self.proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise _Failed(f"({self.name}) the plain versions' re-check "
+                          f"took more than {timeout_s} s")
+        shutil.rmtree(self.store, ignore_errors=True)
+        _expect(self.proc.returncode == 0,
+                f"({self.name}) the re-check's child failed: {err[-2000:]}")
+        got = json.loads(out.strip().splitlines()[-1])
+        r = self.r
+        r["cpu_recheck_s"] = got["wall_s"]
+        r["cpu_recheck_overlapped_s"] = time.perf_counter() - self.t0
+        r["cpu_ladder"] = got["ladder"]
+        r["equal_to_cpu"] = got["view"] == self.want \
+            and got["events"] == r["events"]
+        r["error"] = r["error"] or got["error"]
+        print(f"  {self.name}: the plain versions' re-check of the saved "
+              f"history (a child process, {RECHECK_THREADS} torch threads) "
+              f"{got['wall_s']:.2f} s, waited "
+              f"{r['cpu_recheck_overlapped_s']:.2f} s after its start, "
+              f"{'equal' if r['equal_to_cpu'] else 'DIFFERENT'}; keys "
+              f"checked alone (engine, capacity, s): {got['ladder']}")
+        _expect(r["equal_to_cpu"] and not r["error"],
+                f"({self.name}) differs from the plain versions' re-check "
+                f"or holds an error: {got} against {self.want}")
+
+
+def _harness_run(name, t, dev, rec, recheck, capture=None, defer=False):
+    """Run test map ``t`` through ``core.run`` on ``dev`` (nodes = [],
+    a store under a temporary directory), then its recorded history
+    through ``recheck``, the same checkers built at ``device="cpu"``,
+    at ``RECHECK_THREADS`` torch threads — or, with ``defer``, in a
+    child process from the saved history (returned as a
+    :class:`_DeferredRecheck`). Records walls, launches, card ms, sizes
+    and the comparison."""
+    import shutil
+
+    import torch
+
+    from comdb2_tpu_torch.harness import core
+    from comdb2_tpu_torch.utils import compile_guard as CG
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    store = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+    t["nodes"] = []
+    t["store-root"] = store
+    timed = _TimedChecker(t["checker"], sync)
+    t["checker"] = timed
+    l0 = dict(CG.LAUNCHES)
+    ms0 = CG.card_ms()
+    t0 = time.perf_counter()
+    out = core.run(t)
+    wall = time.perf_counter() - t0
+    ms = CG.card_ms() - ms0
+    launches = {k: CG.LAUNCHES[k] - l0[k] for k in l0}
+    res, h = out["results"], out["history"]
+    r = {"valid": res["valid?"], "events": len(h),
+         "invocations": sum(op.type == "invoke" for op in h),
+         "infos": sum(op.type == "info" and op.process != "nemesis"
+                      for op in h),
+         "fails": sum(op.type == "fail" for op in h),
+         "processes": len({op.process for op in h}),
+         "run_wall_s": wall, "check_wall_s": timed.wall_s,
+         "harness_wall_s": wall - timed.wall_s, "card_ms": ms,
+         "launches": launches, "error": _has_error(res)}
+    if "linearizable" in res:
+        r["keys"] = len(res["linearizable"]["results"])
+        r["failures"] = res["linearizable"]["failures"]
+        r["engines"], r["slots"] = _key_answers(res, h)
+    if capture is not None:
+        capture(out, r)
+    rec[name] = r
+    print(f"  {name}: {t['name']} valid={res['valid?']!r}, "
+          f"{r['events']} events ({r['invocations']} invocations, "
+          f"{r['infos']} info, {r['fails']} fail, {r['processes']} "
+          f"processes)"
+          + (f", {r['keys']} keys, engines {r['engines']}, effective "
+             f"slots {r['slots']}" if "keys" in r else "")
+          + f"; harness {r['harness_wall_s']:.2f} s, check "
+          f"{r['check_wall_s']:.2f} s, card {ms:.3f} ms in launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if "linearizable" in res:
+        r["ladder"] = _ladder(res)
+        # where each info op pends from, as a share of the history
+        r["info_at"] = [round(i / len(h), 3) for i, op in enumerate(h)
+                        if op.type == "info" and op.process != "nemesis"]
+    if defer:
+        return _DeferredRecheck(name, out, r)
+    t0 = time.perf_counter()
+    with _torch_threads(RECHECK_THREADS):
+        again = recheck().check(
+            {"name": t["name"], "dir": os.path.join(store, "cpu-recheck")},
+            t.get("model"), h)
+    r["cpu_recheck_s"] = time.perf_counter() - t0
+    r["error"] = r["error"] or _has_error(again)
+    r["equal_to_cpu"] = (_lin_view(res) == _lin_view(again)
+                         if "linearizable" in res else res == again)
+    shutil.rmtree(store, ignore_errors=True)
+    if "linearizable" in res:
+        r["cpu_ladder"] = _ladder(again)
+    print(f"  {name}: the plain versions' re-check ({RECHECK_THREADS} "
+          f"torch threads) {r['cpu_recheck_s']:.2f} s, "
+          f"{'equal' if r['equal_to_cpu'] else 'DIFFERENT'}"
+          + (f"; keys checked alone (engine, capacity, s): card "
+             f"{r['ladder']}, plain {r['cpu_ladder']}; info ops at "
+             f"{r['info_at']} of the history" if r.get("ladder") else ""))
+    return None
+
+
+def _harness_runs(device, rec, log=None, limit_s=HARNESS_LIMIT_S):
+    """(x1)-(x5) on ``device`` (``None``, the testers' default, is the
+    card), each history re-checked at ``device="cpu"``, (x2)'s in a
+    child process: returns its :class:`_DeferredRecheck`; ``log``, a
+    :class:`_LaunchLog`, is told which run is on."""
+    import shutil
+
+    import torch
+
+    from comdb2_tpu_torch.workloads import comdb2 as W
+    from comdb2_tpu_torch.workloads.sqlish import MemDB
+
+    kw = {} if device is None else {"device": device}
+    dev = torch.device("cuda" if device is None else device)
+
+    def run(name, *a, **k):
+        if log is not None:
+            log.run = name
+        return _harness_run(name, *a, **k)
+
+    def register_checker():
+        return W.register_tester(device="cpu")["checker"]
+
+    random.seed(10)
+    run("x1", W.register_tester(time_limit=limit_s, **kw), dev, rec,
+        register_checker)
+    random.seed(20)
+    db = MemDB(**X2_CHAOS)
+    pending = run("x2", W.register_tester(
+        connect=db.connect, time_limit=limit_s, **kw), dev, rec,
+        register_checker, defer=True)
+    random.seed(30)
+    t = W.register_tester(time_limit=limit_s, **kw)
+    t["client"], planted = _planted_read(t["client"], *X3_PLANT)
+    t.update({"name": "independent", "concurrency": X3_CLIENTS,
+              "generator": _x3_generator(limit_s)})
+
+    def plant(out, r):
+        from comdb2_tpu_torch.checker.independent import subhistory
+
+        k = X3_PLANT[0]
+        sub = subhistory(k, out["history"])
+        at = [i for i, op in enumerate(sub) if op.type == "ok"
+              and op.f == "read" and op.value == X3_PLANT[1]]
+        r["planted"] = {"key": k, "value": X3_PLANT[1], "at": at,
+                        "op-index": out["results"]["linearizable"][
+                            "results"].get(k, {}).get("op-index")}
+    run("x3", t, dev, rec, register_checker, capture=plant)
+    random.seed(40)
+    t = W.register_tester(time_limit=limit_s, **kw)
+    t["name"] = "register-stale-read"
+    gate = _StaleRead(t["concurrency"])
+    t["generator"] = gate.generator(t["generator"])
+    t["client"] = gate.client(t["client"])
+    arts = ("independent/1/linear.svg", "timeline.html",
+            "latency-raw.svg", "latency-quantiles.svg", "rate.svg")
+
+    def keep(out, r):
+        from comdb2_tpu_torch.harness import store
+
+        r["stale_read"] = gate.lie
+        r["artifacts"] = {a: os.path.getsize(store.path(out, a))
+                          if os.path.exists(store.path(out, a)) else None
+                          for a in arts}
+        dst = os.path.join(HERE, "chiprun_out", "harness_x4")
+        os.makedirs(dst, exist_ok=True)
+        for a in arts:
+            if r["artifacts"][a] is not None:
+                shutil.copy(store.path(out, a),
+                            os.path.join(dst, os.path.basename(a)))
+    run("x4", t, dev, rec, register_checker, capture=keep)
+    random.seed(50)
+    run("x5_sets", W.sets_test(connect=_lossy_connect(), **kw), dev, rec,
+        lambda: W.sets_test(device="cpu")["checker"])
+    random.seed(60)
+    t = W.g2_test(**kw)
+    t["client"] = _broken_g2_client()
+    run("x5_g2", t, dev, rec, lambda: W.g2_test(device="cpu")["checker"])
+    return pending
+
+
+def _harness_path(zero_counts, counts):
+    """Path 8: the Jepsen harness in process on the card — (x1) the
+    register test at the reference's settings, (x2) with a chaos
+    backend, (x3) the ``jepsen.independent`` shape with one planted
+    read, (x4) a stale read, (x5) a lossy sets backend and a broken G2
+    backend — then every launch it made held against the plain version.
+    Returns ``(rec, launches, pending)``: ``pending.finish()`` waits for
+    (x2)'s re-check by the plain versions, which runs on in a child
+    process."""
+    from comdb2_tpu_torch.utils import compile_guard as CG
+
+    rec: dict = {}
+    log = _LaunchLog()
+    log.install()
+    CG.time_launches(True)
+    zero_counts()
+    t_path = time.perf_counter()
+    try:
+        pending = _harness_runs(None, rec, log)
+    finally:
+        CG.time_launches(False)
+        log.uninstall()
+    launches = counts()
+    rec["runs_wall_s"] = time.perf_counter() - t_path
+    err, held, plain_ms = _hold_launches(log)
+    rec["hold"] = {"launches": len(log.launches), "max_abs_err": err,
+                   "plain_ms": plain_ms, "by_run": held}
+    print(f"  {len(log.launches)} segment-search launches of the path "
+          f"bit-equal to seg_search_reference (single-history launches and "
+          f"the stream launches' longest and INVALID groups on the same "
+          f"card tensors, every stream group on CPU copies; plain version "
+          f"{plain_ms:.1f} ms for all): "
+          + "; ".join(f"{run} {len(v['single'])} single, "
+                      f"{len(v['stream'])} stream" for run, v in held.items()))
+    rec["wall_s"] = time.perf_counter() - t_path
+    try:
+        _harness_checks(rec)
+    except _Failed:
+        pending.kill()
+        raise
+    return rec, launches, pending
+
+
+def _harness_checks(rec):
+    """Path 8's verdicts: each as stated, none holding an error, each
+    equal to the plain versions' re-check of its history (for (x2), once
+    its child process has answered: :meth:`_DeferredRecheck.finish`);
+    (x3)'s stream
+    launch INVALID in one lane, at the segment where key 3's solo
+    re-check fails, and key 3's op index the planted read's."""
+    x1, x2, x3, x4 = (rec[k] for k in ("x1", "x2", "x3", "x4"))
+    for name, r in rec.items():
+        if isinstance(r, dict) and "valid" in r:
+            _expect(not r["error"], f"({name}) a result holds an error: "
+                                    f"{r}")
+            _expect(r.get("equal_to_cpu", name == "x2"),
+                    f"({name}) differs from the plain versions' re-check: "
+                    f"{r}")
+    _expect(x1["valid"] is True and x1["launches"]["seg_search"] >= 1,
+            f"(x1) not VALID from the kernel: {x1}")
+    _expect(x2["valid"] is True and x2["infos"] > 0,
+            f"(x2) not VALID, or no info op: {x2}")
+    x3_held = rec["hold"]["by_run"].get("x3", {"single": [], "stream": []})
+    stream = x3_held["stream"]
+    solo = [s for s in x3_held["single"] if s["status"] != 0]
+    p = x3["planted"]
+    _expect(x3["valid"] is False and x3["keys"] > 1
+            and x3["failures"] == [p["key"]]
+            and x3["launches"]["seg_search_stream"] == 1
+            and x3["launches"]["seg_search"] >= 1
+            and len(stream) == 1 and len(stream[0]["invalid"]) == 1
+            and len(p["at"]) == 1 and p["op-index"] == p["at"][0]
+            and solo and all(s["fail"] == stream[0]["invalid"][0][5]
+                             for s in solo),
+            f"(x3) not INVALID on key {p['key']} alone, at the planted "
+            f"read, from one stream launch and a solo re-check: {x3}, "
+            f"launches {x3_held}")
+    _expect(x4["valid"] is False and x4["failures"] == [1]
+            and (x4["stale_read"] or {}).get("stale") is not None
+            and x4["launches"]["seg_search"] >= 1
+            and all(v for v in x4["artifacts"].values()),
+            f"(x4) the stale read was not caught with its artifacts: {x4}")
+    _expect(rec["x5_sets"]["valid"] is False
+            and rec["x5_g2"]["valid"] is False,
+            f"(x5) a broken backend passed: {rec['x5_sets']}, "
+            f"{rec['x5_g2']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3697,6 +4493,24 @@ def main() -> int:
         return _fail(f"the service path launched a kernel no time: "
                      f"{path_counts['service']}")
 
+    # --- path 8: the Jepsen harness, counted -------------------------------
+    print("harness: core.run in process on the card — (x1) the register "
+          "test, (x2) with a chaos backend, (x3) the jepsen.independent "
+          "shape, (x4) a stale read, (x5) lossy sets and broken G2 "
+          "backends; each history re-checked by the plain versions")
+    t0 = time.perf_counter()
+    try:
+        harness_rec, path_counts["harness"], harness_pending = \
+            _harness_path(zero_counts, counts)
+    except _Failed as e:
+        return _fail(str(e))
+    print(f"LAUNCHES (harness path): {path_counts['harness']}")
+    print(f"  (path 8 took {time.perf_counter() - t0:.1f} s)")
+    if not (path_counts["harness"]["seg_search[stream]"] > 0
+            and path_counts["harness"]["seg_search"] > 0):
+        return _fail(f"the harness path launched no segment-search "
+                     f"kernel in one of its modes: {path_counts['harness']}")
+
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
           "segments (head from the initial carry; tail ending at the "
@@ -3720,7 +4534,7 @@ def main() -> int:
     except _Failed as e:
         return _fail(str(e))
     del stream_cap
-    max_err = max(max_err, err_v9)
+    max_err = max(max_err, err_v9, harness_rec["hold"]["max_abs_err"])
     stream_rec["v9"] = {"launches": n_v9, "v1_launches": STREAM_PARITY,
                         "plain_ms": plain_v9, "max_abs_err": err_v9}
     print(f"  v9: {n_v9} stream-path launches (the first {STREAM_PARITY} "
@@ -3745,7 +4559,9 @@ def main() -> int:
         "measured_on": f"request (a), segments [0, {WINDOW})",
         "stream_path": {"parity_launches": stream_rec["v9"]["launches"],
                         "card_ms_per_append":
-                            stream_rec["v1"]["card_ms"]["mean"]}}]
+                            stream_rec["v1"]["card_ms"]["mean"]},
+        "harness_path": {"parity_launches": harness_rec["hold"]["launches"],
+                         "plain_ms": harness_rec["hold"]["plain_ms"]}}]
 
     # stream mode, at the main path's own launch shapes: (h)'s whole
     # launch, two of (g)'s group streams together at (g)'s layout, and
@@ -3965,7 +4781,8 @@ def main() -> int:
     print(f"  h kernel: {seg_h.shape[0]} streams x {seg_h.shape[1]} rows, "
           f"{ms_s:.3f} ms (CUDA events, mean of 5), plain {plain_ms_s:.1f}"
           f" ms, bound {bound_s:.5f} ms ({by_s})")
-    err_s = max(err_s, service_rec["sv3"]["max_abs_err"])
+    err_s = max(err_s, service_rec["sv3"]["max_abs_err"],
+                harness_rec["hold"]["max_abs_err"])
     entries.append({
         "name": "seg_search[stream]", "route": "cuda",
         "source": "comdb2_tpu_torch/kernels/seg_search.cu",
@@ -3983,7 +4800,9 @@ def main() -> int:
                              f"{int(seg_g.shape[0])} warp streams in the "
                              f"first",
         "service_path": {"parity_groups": service_rec["sv3"][
-            "checked_groups"], "plain_ms": service_rec["sv3"]["plain_ms"]}})
+            "checked_groups"], "plain_ms": service_rec["sv3"]["plain_ms"]},
+        "harness_path": {"parity_launches": harness_rec["hold"]["launches"],
+                         "plain_ms": harness_rec["hold"]["plain_ms"]}})
 
     # pair_sort: the widest rows the keys engine sorted in (h) and in
     # (j2), random rows at the block-sort and the merge-pass widths, and
@@ -4097,6 +4916,10 @@ def main() -> int:
     print(f"  request (h) wall {batch_res['h']['wall_s']:.4f} s, "
           f"{sort_launches} pair_sort calls in the batch path")
 
+    try:
+        harness_pending.finish()
+    except _Failed as e:
+        return _fail(str(e))
     for e in entries:
         e["launches_by_path"] = {path: c[e["name"]]
                                  for path, c in path_counts.items()}
@@ -4107,6 +4930,7 @@ def main() -> int:
                    "checker_layer": checker_rec,
                    "last_batch_engines": escal_rec, "shrink": shrink_rec,
                    "stream": stream_rec, "service": service_rec,
+                   "harness": harness_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

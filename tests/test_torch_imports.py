@@ -36,6 +36,15 @@ SERVICE_SLICE = ("service", "service.core", "service.daemon",
                  "control.pmux", "obs.metrics", "parallel",
                  "utils.compile_guard")
 
+#: the harness slice's modules: the in-process Jepsen harness, its
+#: control plane, the comdb2 workloads and the perf / timeline reports
+HARNESS_SLICE = ("harness.generator", "harness.independent_gen",
+                 "harness.client", "harness.db", "harness.core",
+                 "harness.fake", "harness.nemesis", "harness.cluster",
+                 "harness.cli", "control.remote", "control.util",
+                 "control.net", "workloads", "workloads.sqlish",
+                 "workloads.comdb2", "report.perf", "report.timeline")
+
 
 def _forbidden(name: str) -> bool:
     return (name in ("jax", "comdb2_tpu")
@@ -62,7 +71,7 @@ def test_package_has_the_slice_modules():
               "txn.scc", "txn.closure_torch", "txn.counterexample",
               "txn.check", "txn.adapters", "checker.brute",
               "ops.native_loader") + SHRINK_SLICE + STREAM_SLICE \
-            + SERVICE_SLICE:
+            + SERVICE_SLICE + HARNESS_SLICE:
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -95,7 +104,9 @@ def test_import_pulls_in_no_jax_in_a_fresh_interpreter():
     n_loaded, bad, slice_mods, stream_mods = r.stdout.strip().splitlines()
     assert int(n_loaded) >= 20
     assert bad == "[]"
-    assert sorted(SHRINK_SLICE) == eval(slice_mods)
+    assert sorted(set(SHRINK_SLICE) | {
+        m for m in HARNESS_SLICE if m.startswith(("harness", "report"))}) \
+        == eval(slice_mods)
     assert sorted(STREAM_SLICE) == eval(stream_mods)
 
 
@@ -106,6 +117,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert set(SHRINK_SLICE) <= scanned
     assert set(STREAM_SLICE) <= scanned
     assert set(SERVICE_SLICE) <= scanned
+    assert set(HARNESS_SLICE) <= scanned
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

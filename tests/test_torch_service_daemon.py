@@ -135,6 +135,11 @@ def test_wire_protocol(daemon):
 
 def test_client_disconnect_mid_request(daemon):
     h = register_history(random.Random(5), 3, 40, p_info=0.0)
+    # one answered check first: a fresh daemon's first admission can
+    # outlast the batch's fill window, and a reply sent before the daemon
+    # has read the close is delivered, not dropped
+    with TCL.ServiceClient("127.0.0.1", daemon) as c:
+        assert c.check(list(h))["valid"] is True
     s = socket.create_connection(("127.0.0.1", daemon), timeout=30)
     s.sendall(json.dumps({"op": "check", "id": 1, "history":
                           history_to_edn(list(h))}).encode() + b"\n")
