@@ -13,7 +13,8 @@ public entry points (``checker.analysis``, ``filetest``,
 ``IndependentChecker``, ``shrink.minimize``, the streaming
 sessions ``stream.StreamSession``, ``stream.engine.MegaBatch``,
 ``stream.wl`` and ``filetest --follow``, the verifier service and the
-Jepsen harness's ``harness.core.run``) at full size, holds every kernel against
+Jepsen harness's ``harness.core.run``, in process and against a
+``sut_node`` cluster) at full size, holds every kernel against
 its plain PyTorch version on the same card tensors, and times both. It
 imports nothing of JAX and nothing of the JAX package, and falls back
 to nothing: any failure exits non-zero before the result line.
@@ -92,7 +93,7 @@ The checker layer, counted as a third path:
 
 The last batch engines, counted as a fourth path:
 
-- (j) ``check_batch(engine="auto", F=8192)`` on 512 eight-process
+- (j) ``check_batch(engine="auto", F=8192)`` on 128 eight-process
   ``register_history`` lanes of 2000 events over 8 values (about 77
   transitions, so only the vmap engine serves the escalation); lanes
   0-7 keep up to 8 calls in flight and overflow the kernel's 128, and
@@ -217,11 +218,37 @@ results and fail indices, and no result may hold an ``error``:
 - (x5) ``sets_test`` over a lossy backend and ``g2_test`` over a broken
   one: both INVALID.
 
+The TCP cluster, counted as a ninth path (``cluster``; the port's
+``workloads.tcp`` clients, ``harness.provision`` and the nemeses against
+real ``sut_node`` processes on ``127.0.0.1`` ports the OS hands out,
+every node killed on the way out; ``native/build/sut_node`` is built
+with cmake at the script's start when it is missing, and the path fails
+without it):
+
+- (c1) the reference suite's ``register-test-nemesis``: five nodes
+  provisioned by ``SutNodeDB`` over ``LocalRemote``,
+  ``TcpClusterRegisterClient(timeout_s=1.0, mutate_retries=8)``,
+  concurrency 10, [w cas cas r] staggered 0.02 s on key 1 for 10 s,
+  ``ClusterPartitioner(isolate_primary=True)`` in two 2 s windows, the
+  tester's checkers on the card: VALID, its lone key through
+  ``seg_search``'s single-history mode (``cuda-seg``) or the
+  ``torch-seg2`` ladder after an overflow at 128, at most 16 effective
+  slots; re-checked by the plain versions in a child process;
+- (c2) the ``-B`` split-brain control of
+  ``tests/test_replicated_sut.py`` (three nodes, 8 keys, 6 s, two 2 s
+  windows; the reference's seeds in turn until one is caught):
+  INVALID, from the stream launch and the failing keys' single-history
+  launches;
+- (c3) list-append over a three-node cluster for 4 s, checked by
+  ``Serializable(backend="device")`` (the closure on the card): VALID,
+  equal to the host checker.
+
 Each run reports its harness wall (generation and the SUT), its check's
 wall, the card's milliseconds in its launches (CUDA events,
 ``compile_guard.time_launches``), its launches, its history's size and
-each key's engine and effective slots. Every segment-search launch of
-the path is copied (``_LaunchLog``) and held bit-equal to
+each key's engine and effective slots; paths 8 and 9 alike. Every
+segment-search launch of either path is copied (``_LaunchLog``) and held
+bit-equal to
 ``seg_search_reference``: each single-history launch on the same card
 tensors; each stream launch's longest group and its groups with an
 INVALID lane on the same card tensors, and every group on CPU copies of
@@ -230,7 +257,8 @@ them.
 In the single-history path, (e3) is (e) again with ``filetest --trace``:
 the span totals per stage (parse, pack, device with segments / kernel /
 decode inside, finalize) and the parser that ran — the C++ loader when
-``native/build/libct_sut.so`` is built (the script builds it with
+``native/build/libct_sut.so`` is built (the script builds it, and
+``sut_node``, with
 ``cmake`` at its start when it is missing and ``cmake`` is there), else
 the Python reader.
 
@@ -303,7 +331,7 @@ CLOSURE_N, CLOSURE_BATCH, CLOSURE_BATCH_N = 4096, 8, 1024   # (t)
 TXN_COUNT = 2400       # (t2): past check_txn's DEVICE_THRESHOLD
 WL_LANES = 256         # (w): lanes per family, padded to the top rung
 KEYS, KEY_EVENTS = 256, 2000                                 # (i)
-J_LANES, J_EVENTS, J_OVERFLOW, J_F = 512, 2000, 8, 8192     # (j), (j2)
+J_LANES, J_EVENTS, J_OVERFLOW, J_F = 128, 2000, 8, 8192     # (j), (j2)
 S10_EVENTS, S_EVENTS, SHRINK_F = 10_000, 100_000, 1024      # (s10), (s)
 # (s10): (rounds, candidates, dispatches) of the JAX package's
 # minimize(checker="linear", F=1024, engine="auto") on CPU, where its
@@ -1275,22 +1303,27 @@ def _checker_layer(dev, filetest_args=()):
     return rec
 
 
+NATIVE_TARGETS = ("libct_sut.so", "sut_node")
+
+
 def _start_native_build():
     """Start building ``native/build/libct_sut.so`` (the C++ EDN loader
-    behind ``ops.native_loader``) when it is missing and ``cmake`` is
+    behind ``ops.native_loader``) and ``native/build/sut_node`` (the
+    replicated SUT node of path 9) when one is missing and ``cmake`` is
     on the PATH; returns the process or None. Its log goes to
     ``native/build/build.log``."""
     import shutil
 
     build_dir = os.path.join(HERE, "native", "build")
-    if (os.path.exists(os.path.join(build_dir, "libct_sut.so"))
+    if (all(os.path.exists(os.path.join(build_dir, f))
+            for f in NATIVE_TARGETS)
             or not os.path.isdir(os.path.join(HERE, "native"))
             or shutil.which("cmake") is None):
         return None
     os.makedirs(build_dir, exist_ok=True)
     log = open(os.path.join(build_dir, "build.log"), "w")
     cmd = ("cmake -S native -B native/build -DCMAKE_BUILD_TYPE=Release && "
-           "cmake --build native/build --target ct_sut -j 8")
+           "cmake --build native/build --target ct_sut sut_node -j 8")
     proc = subprocess.Popen(["bash", "-c", cmd], cwd=HERE, stdout=log,
                             stderr=subprocess.STDOUT)
     proc.log = log
@@ -3629,8 +3662,8 @@ class _LaunchLog:
         SK._launch = self._real
 
 
-def _hold_launches(log):
-    """Path 8's launches against the plain version: each single-history
+def _hold_launches(log, path="path 8"):
+    """A path's launches against the plain version: each single-history
     launch bit-equal (status, fail, n, frontier) to
     ``seg_search_reference`` on the same card tensors; each stream
     launch's longest group and its groups with an INVALID lane on the
@@ -3681,7 +3714,7 @@ def _hold_launches(log):
             "invalid": [[g, h, *out[g, h].tolist(),
                          int(out[g, h, 1]) - rs[h] - 1]
                         for (g, h), rs in zip(lanes, resets)]})
-    _expect(err == 0, f"path 8's launches differ from the plain version: "
+    _expect(err == 0, f"{path}'s launches differ from the plain version: "
                       f"max diff {err}, {held}")
     return err, held, (time.perf_counter() - t0) * 1e3
 
@@ -3776,12 +3809,13 @@ class _DeferredRecheck:
                 f"or holds an error: {got} against {self.want}")
 
 
-def _harness_run(name, t, dev, rec, recheck, capture=None, defer=False):
-    """Run test map ``t`` through ``core.run`` on ``dev`` (nodes = [],
-    a store under a temporary directory), then its recorded history
-    through ``recheck``, the same checkers built at ``device="cpu"``,
-    at ``RECHECK_THREADS`` torch threads — or, with ``defer``, in a
-    child process from the saved history (returned as a
+def _harness_run(name, t, dev, rec, recheck, capture=None, defer=False,
+                 keep_nodes=False):
+    """Run test map ``t`` through ``core.run`` on ``dev`` (nodes = []
+    unless ``keep_nodes``, a store under a temporary directory), then
+    its recorded history through ``recheck``, the same checkers built at
+    ``device="cpu"``, at ``RECHECK_THREADS`` torch threads — or, with
+    ``defer``, in a child process from the saved history (returned as a
     :class:`_DeferredRecheck`). Records walls, launches, card ms, sizes
     and the comparison."""
     import shutil
@@ -3796,7 +3830,8 @@ def _harness_run(name, t, dev, rec, recheck, capture=None, defer=False):
             torch.cuda.synchronize(dev)
 
     store = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
-    t["nodes"] = []
+    if not keep_nodes:
+        t["nodes"] = []
     t["store-root"] = store
     timed = _TimedChecker(t["checker"], sync)
     t["checker"] = timed
@@ -4028,6 +4063,319 @@ def _harness_checks(rec):
             and rec["x5_g2"]["valid"] is False,
             f"(x5) a broken backend passed: {rec['x5_sets']}, "
             f"{rec['x5_g2']}")
+
+
+CLUSTER_NODES = ("m1", "m2", "m3", "m4", "m5")   # (c1): the reference's fleet
+CLUSTER_LIMIT_S = 10.0    # (c1): the limit of (x1)
+C2_SEEDS = (41, 42, 43, 44)   # (c2): the reference test's seeds
+C2_KEYS = 8               # (c2): registers of the keyed mix
+C3_LIMIT_S = 4.0          # (c3): the reference test's limit
+
+
+def _sut_node() -> str:
+    """The ``sut_node`` binary path 9 runs; raises when it is not built
+    (the native build at the script's start builds it with cmake)."""
+    path = os.path.join(HERE, "native", "build", "sut_node")
+    if not os.path.exists(path):
+        raise _Failed(f"(c) {path} is not built; see native/build/build.log "
+                      f"(cmake --build native/build --target sut_node)")
+    return path
+
+
+def _free_ports(n):
+    """``n`` distinct localhost ports the OS handed out."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            sk = socket.socket()
+            sk.bind(("127.0.0.1", 0))
+            socks.append(sk)
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def _c1_test(binary, base_dir, kw):
+    """(c1): ``register-test-nemesis`` at the reference's shape — five
+    ``sut_node`` nodes provisioned by ``SutNodeDB`` over ``LocalRemote``,
+    concurrency 10, [w cas cas r] staggered 0.02 s on key 1 for
+    ``CLUSTER_LIMIT_S``, and the master+1 breaknet partitioner isolating
+    the primary in two windows; the tester's own checkers. Returns the
+    test map, its ports and its DB."""
+    from comdb2_tpu_torch.control.remote import LocalRemote
+    from comdb2_tpu_torch.harness import generator as G
+    from comdb2_tpu_torch.harness.provision import SutNodeDB, local_layout
+    from comdb2_tpu_torch.workloads import comdb2 as W
+    from comdb2_tpu_torch.workloads.tcp import (ClusterControl,
+                                                ClusterPartitioner,
+                                                TcpClusterRegisterClient)
+
+    ports = _free_ports(len(CLUSTER_NODES))
+    db = SutNodeDB(LocalRemote(), binary,
+                   local_layout(CLUSTER_NODES, ports), base_dir=base_dir,
+                   timeout_ms=300, elect_ms=500, lease_ms=300)
+    steps = [G.sleep(1.5), {"type": "info", "f": "start"}, G.sleep(2.0),
+             {"type": "info", "f": "stop"}, G.sleep(1.5),
+             {"type": "info", "f": "start"}, G.sleep(2.0),
+             {"type": "info", "f": "stop"}]
+    t = W.register_tester_nemesis(opts={
+        "nodes": list(CLUSTER_NODES), "db": db,
+        "client": TcpClusterRegisterClient(ports, timeout_s=1.0,
+                                           mutate_retries=8),
+        "nemesis": ClusterPartitioner(ClusterControl(ports),
+                                      isolate_primary=True),
+        "generator": G.phases(
+            G.nemesis(G.seq(steps), G.time_limit(
+                CLUSTER_LIMIT_S, G.stagger(0.02, G.clients(
+                    G.mix([W.w, W.cas, W.cas, W.r]))))),
+            G.log("quiesce"), G.sleep(1.0)),
+    }, **kw)
+    return t, ports, db
+
+
+def _c2_generator(seed):
+    """(c2): the reference's split-brain run — ops over ``C2_KEYS``
+    registers, each process from its own rng of (seed, process, f),
+    for 6 s, with two 2 s partition windows."""
+    from comdb2_tpu_torch.harness import generator as G
+    from comdb2_tpu_torch.ops.kv import tuple_
+
+    def keyed(f):
+        rngs = {}
+
+        def op(test=None, process=None):
+            rng = rngs.get(process)
+            if rng is None:
+                rng = rngs[process] = random.Random(f"{seed}/{process}/{f}")
+            k = rng.randrange(C2_KEYS)
+            if f == "read":
+                return {"type": "invoke", "f": "read",
+                        "value": tuple_(k, None)}
+            if f == "write":
+                return {"type": "invoke", "f": "write",
+                        "value": tuple_(k, rng.randrange(5))}
+            return {"type": "invoke", "f": "cas",
+                    "value": tuple_(k, (rng.randrange(5),
+                                        rng.randrange(5)))}
+        return op
+
+    steps = [G.sleep(0.4)]
+    for _ in range(2):
+        steps += [{"type": "info", "f": "start"}, G.sleep(2.0),
+                  {"type": "info", "f": "stop"}, G.sleep(0.8)]
+    return G.nemesis(G.seq(steps), G.time_limit(6.0, G.stagger(
+        0.01, G.mix([keyed("read"), keyed("read"), keyed("write"),
+                     keyed("cas")]))))
+
+
+def _cluster_runs(device, rec, log=None):
+    """(c1)-(c3) on ``device`` (``None``, the testers' default, is the
+    card), each history re-checked at ``device="cpu"``, (c1)'s in a
+    child process: returns its :class:`_DeferredRecheck`. Every node is
+    killed on the way out."""
+    import shutil
+
+    import torch
+
+    from comdb2_tpu_torch.checker import checkers as C
+    from comdb2_tpu_torch.checker import independent as I
+    from comdb2_tpu_torch.harness import fake
+    from comdb2_tpu_torch.harness import generator as G
+    from comdb2_tpu_torch.models.model import cas_register
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+    from comdb2_tpu_torch.workloads import comdb2 as W
+    from comdb2_tpu_torch.workloads.tcp import (ClusterControl,
+                                                ClusterPartitioner,
+                                                ListAppendTcpClient,
+                                                TcpClusterRegisterClient,
+                                                spawn_cluster)
+
+    binary = _sut_node()
+    kw = {} if device is None else {"device": device}
+    dev = torch.device("cuda" if device is None else device)
+
+    def run(name, *a, **k):
+        if log is not None:
+            log.run = name
+        return _harness_run(name, *a, **k)
+
+    def starts(out, r):
+        r["nemesis_starts"] = sum(op.process == "nemesis" and op.f == "start"
+                                  and op.type == "info"
+                                  for op in out["history"]) // 2
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_c1_sut_")
+    random.seed(70)
+    t, ports, db = _c1_test(binary, base, kw)
+    try:
+        pending = run("c1", t, dev, rec,
+                      lambda: W.register_tester(device="cpu")["checker"],
+                      capture=starts, defer=True, keep_nodes=True)
+    finally:
+        ClusterControl(ports).heal()
+        for node in CLUSTER_NODES:
+            db.teardown(t, node)
+        shutil.rmtree(base, ignore_errors=True)
+    try:
+        rec["c2_seeds"] = []
+        for seed in C2_SEEDS:
+            ports = _free_ports(3)
+            procs = spawn_cluster(binary, ports, durable=True,
+                                  timeout_ms=300, elect_ms=500,
+                                  lease_ms=300, flags=["-B"])
+            try:
+                ctl = ClusterControl(ports)
+                t = fake.noop_test(**kw)
+                t.update({
+                    "concurrency": 5, "name": f"cluster-splitbrain-{seed}",
+                    "client": TcpClusterRegisterClient(ports,
+                                                       timeout_s=0.45),
+                    "model": cas_register(),
+                    "nemesis": ClusterPartitioner(ctl,
+                                                  isolate_primary=True),
+                    "generator": _c2_generator(seed),
+                    "checker": C.compose({"linearizable": I.checker(
+                        C.Linearizable(**kw))})})
+                run("c2", t, dev, rec, lambda: C.compose({
+                    "linearizable": I.checker(
+                        C.Linearizable(device="cpu"))}))
+            finally:
+                ClusterControl(ports).heal()
+                procs.kill9_all()
+            rec["c2_seeds"].append([seed, rec["c2"]["valid"]])
+            if rec["c2"]["valid"] is False:
+                break
+        ports = _free_ports(3)
+        procs = spawn_cluster(binary, ports, durable=True, timeout_ms=500,
+                              elect_ms=500, lease_ms=300)
+        try:
+            t = fake.noop_test(**kw)
+            t.update({
+                "concurrency": 5, "name": "la-cluster",
+                "client": ListAppendTcpClient(ports, timeout_s=0.6),
+                "model": None,
+                "generator": G.clients(G.time_limit(C3_LIMIT_S, G.stagger(
+                    0.01, W.list_append_gen(n_keys=3)))),
+                "checker": C.Serializable(backend="device", **kw)})
+
+            d0 = TCL.DISPATCHES
+
+            def host(out, r):
+                r["closure_dispatches"] = TCL.DISPATCHES - d0
+                h = out["history"]
+                t0 = time.perf_counter()
+                want = C.Serializable(backend="host").check({}, None, h)
+                r["host_s"] = time.perf_counter() - t0
+                res = out["results"]
+                r["equal_to_host"] = res == want
+                r["txns"] = res.get("txn-count")
+                r["edges"] = res.get("edge-count")
+            run("c3", t, dev, rec,
+                lambda: C.Serializable(backend="device", device="cpu"),
+                capture=host)
+            # the plain re-check's closure calls compare, they are not
+            # the path's
+            rec["comparison_closures"] = (TCL.DISPATCHES - d0
+                                          - rec["c3"]["closure_dispatches"])
+        finally:
+            procs.kill9_all()
+    except BaseException:
+        pending.kill()
+        raise
+    return pending
+
+
+def _cluster_path(zero_counts, counts):
+    """Path 9: the TCP cluster half of the harness on the card — (c1)
+    ``register-test-nemesis`` over five ``sut_node`` nodes, (c2) the
+    ``-B`` split-brain control, (c3) list-append over the cluster —
+    then every segment-search launch it made held against the plain
+    version. Returns ``(rec, launches, pending)``: ``pending.finish()``
+    waits for (c1)'s re-check by the plain versions in a child
+    process."""
+    from comdb2_tpu_torch.utils import compile_guard as CG
+
+    rec: dict = {}
+    log = _LaunchLog()
+    log.install()
+    CG.time_launches(True)
+    zero_counts()
+    t_path = time.perf_counter()
+    try:
+        pending = _cluster_runs(None, rec, log)
+    finally:
+        CG.time_launches(False)
+        log.uninstall()
+    launches = counts()
+    launches["closure_diag"] -= rec.get("comparison_closures", 0)
+    rec["runs_wall_s"] = time.perf_counter() - t_path
+    try:
+        err, held, plain_ms = _hold_launches(log, "path 9")
+        rec["hold"] = {"launches": len(log.launches), "max_abs_err": err,
+                       "plain_ms": plain_ms, "by_run": held}
+        print(f"  {len(log.launches)} segment-search launches of the path "
+              f"bit-equal to seg_search_reference (plain version "
+              f"{plain_ms:.1f} ms for all): "
+              + "; ".join(f"{run} {len(v['single'])} single, "
+                          f"{len(v['stream'])} stream"
+                          for run, v in held.items()))
+        rec["wall_s"] = time.perf_counter() - t_path
+        for name in ("c1", "c2", "c3"):
+            r = rec[name]
+            print(f"  {name}: valid={r['valid']!r}, engines "
+                  f"{r.get('engines', 'closure_diag')}, effective slots "
+                  f"{r.get('slots')}, launches "
+                  f"{ {k: v for k, v in r['launches'].items() if v} }"
+                  + (f" and {r['closure_dispatches']} closure calls"
+                     if "closure_dispatches" in r else "")
+                  + f", card {r['card_ms']:.3f} ms in the launches; "
+                  f"harness {r['harness_wall_s']:.2f} s, check "
+                  f"{r['check_wall_s']:.2f} s, plain re-check "
+                  + (f"{r['cpu_recheck_s']:.2f} s" if "cpu_recheck_s" in r
+                     else "in a child process (below)"))
+        _cluster_checks(rec, launches)
+    except _Failed:
+        pending.kill()
+        raise
+    return rec, launches, pending
+
+
+def _cluster_checks(rec, launches):
+    """Path 9's verdicts: none holding an error; (c2) and (c3) equal to
+    the plain versions' re-checks ((c1) once its child answers); (c1)
+    VALID from the kernel or the seg2 ladder with both partition
+    windows; (c2) INVALID from the kernel; (c3) VALID from the
+    closure on the card, equal to the host checker."""
+    c1, c2, c3 = rec["c1"], rec["c2"], rec["c3"]
+    for name in ("c1", "c2", "c3"):
+        _expect(not rec[name]["error"],
+                f"({name}) a result holds an error: {rec[name]}")
+    for name in ("c2", "c3"):
+        _expect(rec[name].get("equal_to_cpu"),
+                f"({name}) differs from the plain versions' re-check: "
+                f"{rec[name]}")
+    held = rec["hold"]["by_run"]
+    _expect(c1["valid"] is True and c1["launches"]["seg_search"] >= 1
+            and set(c1["engines"]) <= {"cuda-seg", "torch-seg2"}
+            and max(c1["slots"]) <= 16
+            and c1["nemesis_starts"] >= 2,
+            f"(c1) not VALID from cuda-seg / torch-seg2 at <= 16 slots "
+            f"with two partition windows: {c1}")
+    invalid = [s for s in held.get("c2", {}).get("single", [])
+               if s["status"] == 1] + [
+        v for s in held.get("c2", {}).get("stream", [])
+        for v in s["invalid"]]
+    _expect(c2["valid"] is False and c2["failures"] and invalid,
+            f"(c2) the split-brain control was not INVALID from the "
+            f"kernel in seeds {rec['c2_seeds']}: {c2}")
+    _expect(c3["valid"] is True and c3["equal_to_host"]
+            and (c3["txns"] or 0) >= 20 and (c3["edges"] or 0) >= 10
+            and launches["closure_diag"] >= 1,
+            f"(c3) list-append not VALID from the closure on the card, "
+            f"or unlike the host checker: {c3}, launches {launches}")
 
 
 def main() -> int:
@@ -4511,6 +4859,25 @@ def main() -> int:
         return _fail(f"the harness path launched no segment-search "
                      f"kernel in one of its modes: {path_counts['harness']}")
 
+    # --- path 9: the TCP cluster, counted ---------------------------------
+    print("cluster: the TCP cluster half of the harness on the card — (c1) "
+          "register-test-nemesis over five sut_node nodes, (c2) the -B "
+          "split-brain control, (c3) list-append over the cluster; each "
+          "history re-checked by the plain versions")
+    t0 = time.perf_counter()
+    try:
+        cluster_rec, path_counts["cluster"], cluster_pending = \
+            _cluster_path(zero_counts, counts)
+    except _Failed as e:
+        return _fail(str(e))
+    print(f"LAUNCHES (cluster path): {path_counts['cluster']}")
+    print(f"  (path 9 took {time.perf_counter() - t0:.1f} s)")
+    if not (path_counts["cluster"]["seg_search"] > 0
+            and path_counts["cluster"]["closure_diag"] > 0):
+        return _fail(f"the cluster path launched no single-history "
+                     f"segment search or no closure: "
+                     f"{path_counts['cluster']}")
+
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
           "segments (head from the initial carry; tail ending at the "
@@ -4534,7 +4901,8 @@ def main() -> int:
     except _Failed as e:
         return _fail(str(e))
     del stream_cap
-    max_err = max(max_err, err_v9, harness_rec["hold"]["max_abs_err"])
+    max_err = max(max_err, err_v9, harness_rec["hold"]["max_abs_err"],
+                  cluster_rec["hold"]["max_abs_err"])
     stream_rec["v9"] = {"launches": n_v9, "v1_launches": STREAM_PARITY,
                         "plain_ms": plain_v9, "max_abs_err": err_v9}
     print(f"  v9: {n_v9} stream-path launches (the first {STREAM_PARITY} "
@@ -4561,7 +4929,9 @@ def main() -> int:
                         "card_ms_per_append":
                             stream_rec["v1"]["card_ms"]["mean"]},
         "harness_path": {"parity_launches": harness_rec["hold"]["launches"],
-                         "plain_ms": harness_rec["hold"]["plain_ms"]}}]
+                         "plain_ms": harness_rec["hold"]["plain_ms"]},
+        "cluster_path": {"parity_launches": cluster_rec["hold"]["launches"],
+                         "plain_ms": cluster_rec["hold"]["plain_ms"]}}]
 
     # stream mode, at the main path's own launch shapes: (h)'s whole
     # launch, two of (g)'s group streams together at (g)'s layout, and
@@ -4782,7 +5152,8 @@ def main() -> int:
           f"{ms_s:.3f} ms (CUDA events, mean of 5), plain {plain_ms_s:.1f}"
           f" ms, bound {bound_s:.5f} ms ({by_s})")
     err_s = max(err_s, service_rec["sv3"]["max_abs_err"],
-                harness_rec["hold"]["max_abs_err"])
+                harness_rec["hold"]["max_abs_err"],
+                cluster_rec["hold"]["max_abs_err"])
     entries.append({
         "name": "seg_search[stream]", "route": "cuda",
         "source": "comdb2_tpu_torch/kernels/seg_search.cu",
@@ -4802,7 +5173,9 @@ def main() -> int:
         "service_path": {"parity_groups": service_rec["sv3"][
             "checked_groups"], "plain_ms": service_rec["sv3"]["plain_ms"]},
         "harness_path": {"parity_launches": harness_rec["hold"]["launches"],
-                         "plain_ms": harness_rec["hold"]["plain_ms"]}})
+                         "plain_ms": harness_rec["hold"]["plain_ms"]},
+        "cluster_path": {"parity_launches": cluster_rec["hold"]["launches"],
+                         "plain_ms": cluster_rec["hold"]["plain_ms"]}})
 
     # pair_sort: the widest rows the keys engine sorted in (h) and in
     # (j2), random rows at the block-sort and the merge-pass widths, and
@@ -4918,6 +5291,7 @@ def main() -> int:
 
     try:
         harness_pending.finish()
+        cluster_pending.finish()
     except _Failed as e:
         return _fail(str(e))
     for e in entries:
@@ -4930,7 +5304,7 @@ def main() -> int:
                    "checker_layer": checker_rec,
                    "last_batch_engines": escal_rec, "shrink": shrink_rec,
                    "stream": stream_rec, "service": service_rec,
-                   "harness": harness_rec,
+                   "harness": harness_rec, "cluster": cluster_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

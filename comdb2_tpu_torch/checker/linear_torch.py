@@ -1248,8 +1248,10 @@ def check_device_flat(succ, inv_proc, inv_tr, ok_proc, depth, *, B: int,
     skipped."""
     bb, sb, tb, fits = flat_pack_bits(B, n_states, n_transitions, P)
     if not fits:
-        raise ValueError("flat engine requires the packed-key budget to "
-                         "fit")
+        # the JAX package asserts; raised here so that ``python -O``
+        # keeps the check, with the same class and message
+        raise AssertionError("flat engine requires the packed-key budget "
+                             "to fit")
     bits = (bb, sb, tb)
     dev = engine_device(succ, device)
     succ = as_tensor(succ, dev)
@@ -1494,7 +1496,7 @@ def check_device_keys(succ, inv_proc, inv_tr, ok_proc, depth, *,
     skipped."""
     lay = KeyLayout(B, n_states, n_transitions, P)
     if not lay.fits:
-        raise ValueError("key layout must fit 62 bits")
+        raise AssertionError("key layout must fit 62 bits")
     dev = engine_device(succ, device)
     succ = as_tensor(succ, dev)
     ip_all = as_tensor(inv_proc, dev)

@@ -3,10 +3,12 @@ nemesis loops with indeterminacy-driven process recycling, results
 store, and CLI — the capabilities of ``jepsen/{core,generator,client,
 db,os,store,cli,tests}.clj``.
 
-The counterpart of the JAX package's ``harness`` package, in-process
-half: everything but the TCP cluster's modules (provisioning, cluster
-kill, the web browser, fake time and the time nemesis). The harness
-touches no device; the checkers a test composes do.
+The counterpart of the JAX package's ``harness`` package, with the
+same exports: the in-process runner and the TCP cluster's modules
+(provisioning in :mod:`.provision`, cluster kill-restart in
+:mod:`.killcluster`, fake time, the time nemesis, OS setup, the repl
+helpers and the store's web browser). The harness touches no device;
+the checkers a test composes do.
 """
 
 from . import generator
@@ -17,8 +19,13 @@ from . import store
 from . import fake
 from . import cli
 from . import nemesis
+from . import nemesis_time
 from . import cluster
+from . import faketime
+from . import killcluster
+from . import web
 from .core import run, run_case
 
 __all__ = ["generator", "client", "db", "core", "store", "fake", "cli",
-           "nemesis", "cluster", "run", "run_case"]
+           "nemesis", "nemesis_time", "cluster", "faketime",
+           "killcluster", "web", "run", "run_case"]

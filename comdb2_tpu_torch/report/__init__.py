@@ -7,10 +7,11 @@ The counterpart of the JAX package's ``report`` package: :mod:`.svg`
 (the SVG document), :mod:`.perf` (latency and rate graphs),
 :mod:`.timeline`, :mod:`.linear_svg` (a failed linearizability
 analysis), :mod:`.txn_svg` (a dependency cycle) and :mod:`.shrink_svg`
-(a minimal sub-history, re-checked on the host). Each writes the same
-bytes as the JAX package's module of the same name. The graph checkers
-mirror ``checker.clj``'s ``latency-graph``, ``rate-graph`` and
-``perf``. Not ported yet: the service SVG.
+(a minimal sub-history, re-checked on the host) and
+:mod:`.service_svg` (the verifier daemon's latency timeline). Each
+writes the same bytes as the JAX package's module of the same name. The
+graph checkers mirror ``checker.clj``'s ``latency-graph``,
+``rate-graph`` and ``perf``.
 """
 
 from __future__ import annotations

@@ -26,15 +26,14 @@ check op) scrapes the metrics plane (Prometheus text + JSON forms —
 docs/observability.md); with ``--store`` the status snapshot is
 persisted through :func:`comdb2_tpu_torch.harness.store.
 save_service_status` on every artifact interval and at shutdown,
-alongside ``timeline.json`` (the per-request rows and event marks of
-:meth:`~.core.VerifierCore.timeline_records`; the JAX package renders
-them as ``timeline.svg``, a renderer the port does not have yet) and —
-with ``--trace`` — ``trace.json`` (Chrome/Perfetto span export).
+alongside ``timeline.svg`` (the per-request stage latencies and event
+marks of :meth:`~.core.VerifierCore.timeline_records`, rendered by
+:func:`comdb2_tpu_torch.report.service_svg.render_service_timeline`)
+and — with ``--trace`` — ``trace.json`` (Chrome/Perfetto span export).
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import selectors
@@ -413,8 +412,9 @@ class VerifierDaemon:
     def _save_obs(self) -> None:
         """The observability artifacts next to the status snapshot:
         ``trace.json`` (Chrome/Perfetto trace-event export — only
-        when tracing is enabled) and ``timeline.json`` (the per-request
-        rows and event marks), both under ``<store>/service/``."""
+        when tracing is enabled) and ``timeline.svg`` (the per-run
+        latency/rate timeline), both under ``<store>/service/`` where
+        the store web index links them."""
         d = os.path.join(self.store_root, "service")
         try:
             os.makedirs(d, exist_ok=True)
@@ -422,9 +422,12 @@ class VerifierDaemon:
                 obs.export_chrome(os.path.join(d, "trace.json"))
             records, events = self.core.timeline_records()
             if records:
-                with open(os.path.join(d, "timeline.json"), "w") as fh:
-                    json.dump({"records": records, "events": events},
-                              fh, default=str)
+                from ..report.service_svg import \
+                    render_service_timeline
+
+                render_service_timeline(
+                    records, events,
+                    path=os.path.join(d, "timeline.svg"))
         except OSError as e:
             logger.warning("obs artifact write failed: %s", e)
 

@@ -5,8 +5,9 @@
 - :mod:`comdb2_tpu_torch.workloads.comdb2` — cas-register, bank, sets,
   dirty-reads, G2 workloads and their testers
 
-The counterpart of the JAX package's ``workloads`` package, in-process
-half: the TCP and SQL SUT adapters are not ported yet.
+The counterpart of the JAX package's ``workloads`` package, with the
+same exports; its TCP and SQL clients of the replicated ``sut_node``
+cluster are the modules :mod:`.tcp` and :mod:`.sql`, imported by name.
 """
 
 from . import sqlish

@@ -422,9 +422,13 @@ def test_vmap_only_shape_matches_the_reference(vmap_only, engine):
 
 
 def test_vmap_only_shape_refuses_flat(vmap_only):
-    _, _, tb, _, _ = vmap_only
-    with pytest.raises(ValueError, match="budget"):
+    """Both packages refuse with the same class and message."""
+    _, jb, tb, _, _ = vmap_only
+    with pytest.raises(AssertionError, match="budget") as want:
+        JB.check_batch(jb, F=512, engine="flat")
+    with pytest.raises(AssertionError, match="budget") as got:
         TB.check_batch(tb, F=512, engine="flat", device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_vmap_needs_the_step_streams(vmap_only):

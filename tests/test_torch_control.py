@@ -7,7 +7,9 @@ The same calls go to both packages over a ``RecordingRemote`` each; the
 command strings they record, the values they return and the grudges
 they draw (the stdlib ``random`` state seeded before each) must be
 equal. Commands issued from parallel per-node threads are compared as
-sorted lists; each node's own commands keep their order.
+sorted lists; each node's own commands keep their order. The time
+nemesis (``harness.nemesis_time``) is held the same way, and its C
+helpers are compiled here and their argv contract checked.
 """
 
 import random
@@ -21,6 +23,7 @@ from comdb2_tpu.control import remote as JREM
 from comdb2_tpu.control import util as JUTIL
 from comdb2_tpu.harness import cluster as JCLU
 from comdb2_tpu.harness import nemesis as JN
+from comdb2_tpu.harness import nemesis_time as JNT
 
 from comdb2_tpu_torch import control as TCTL
 from comdb2_tpu_torch.control import net as TNET
@@ -28,6 +31,7 @@ from comdb2_tpu_torch.control import remote as TREM
 from comdb2_tpu_torch.control import util as TUTIL
 from comdb2_tpu_torch.harness import cluster as TCLU
 from comdb2_tpu_torch.harness import nemesis as TN
+from comdb2_tpu_torch.harness import nemesis_time as TNT
 
 NODES = ["n1", "n2", "n3", "n4", "n5"]
 
@@ -292,3 +296,51 @@ def test_cluster_heal_await_and_loop():
         out.append((_per_host(rec), n, len(runs)))
     assert out[0] == out[1]
     assert out[0][1:] == (2, 3)
+
+
+# --- precision clock faults (harness/nemesis_time.py) -------------------------
+
+def _time_commands(CTL, REM, NT, root):
+    rec = REM.RecordingRemote()
+    with CTL.with_session(CTL.Session("n1", rec, root=root)):
+        NT.install()
+        NT.install(install_dir="/srv/t t")
+        NT.bump_time(1500.7)
+        NT.bump_time(-250)
+        NT.strobe_time(200, 10, 1.5, install_dir="/srv/t t")
+        NT.reset_time()
+    # the helpers' sources go up from temporary files: compare where
+    # they land, not the local names
+    return rec.commands, [(h, dst) for h, _src, dst in rec.uploads]
+
+
+@pytest.mark.parametrize("root", [False, True])
+def test_nemesis_time_commands_equal_the_references(root):
+    assert TNT.BUMP_TIME_C == JNT.BUMP_TIME_C
+    assert TNT.STROBE_TIME_C == JNT.STROBE_TIME_C
+    assert TNT.INSTALL_DIR == JNT.INSTALL_DIR
+    got = _time_commands(TCTL, TREM, TNT, root)
+    assert got == _time_commands(JCTL, JREM, JNT, root)
+    assert any("bump-time 1500" in c for _, c in got[0])
+
+
+def test_nemesis_time_compiles_real_helpers(tmp_path):
+    """The port installs the bump / strobe C helpers locally; their argv
+    contract holds (the clock itself is not set)."""
+    import os
+    import shutil
+    import subprocess
+
+    if shutil.which("cc") is None:
+        pytest.skip("no C compiler")
+    s = TCTL.Session("localhost", TREM.LocalRemote(),
+                     root=os.geteuid() == 0)
+    with TCTL.with_session(s):
+        TNT.install(install_dir=str(tmp_path))
+    for name in ("bump-time", "strobe-time"):
+        binary = tmp_path / name
+        assert binary.exists()
+        p = subprocess.run([str(binary)], capture_output=True, text=True,
+                           timeout=30)
+        assert p.returncode == 2
+        assert "usage" in p.stderr

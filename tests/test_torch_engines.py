@@ -286,12 +286,76 @@ def test_check_device_flat_matches(lanes, F):
 
 
 def test_check_device_flat_refuses_a_budget_that_does_not_fit(lanes):
+    """Both packages refuse with the same class and message."""
     sb = lanes.sb
-    with pytest.raises(ValueError):
-        LT.check_device_flat(lanes.succ, sb.inv_proc, sb.inv_tr,
-                             sb.ok_proc, sb.depth, B=lanes.B, F=8, P=16,
-                             n_states=1 << 20, n_transitions=1 << 12,
-                             device="cpu")
+    args = (lanes.succ, sb.inv_proc, sb.inv_tr, sb.ok_proc, sb.depth)
+    kw = dict(B=lanes.B, F=8, P=16, n_states=1 << 20,
+              n_transitions=1 << 12)
+    with pytest.raises(AssertionError) as want:
+        LJ.check_device_flat(*args, **kw)
+    with pytest.raises(AssertionError) as got:
+        LT.check_device_flat(*args, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
+
+
+def _unfit_histories():
+    """Three four-process histories with info ops: retired processes
+    take the slot count to 10 (16 once rounded up), past both the flat
+    budget and the 62-bit key layout."""
+    rng = random.Random(2)
+    return [JS.register_history(rng, n_procs=4, n_events=40, values=4,
+                                p_info=0.2) for _ in range(3)]
+
+
+@pytest.mark.parametrize("engine", ["flat", "keys"])
+def test_a_layout_that_does_not_fit_raises_the_references_error(engine):
+    """``check_batch`` forced to an engine whose layout does not fit:
+    the JAX package asserts (``linear_jax.check_device_flat`` /
+    ``check_device_keys``); the port raises the same ``AssertionError``
+    with the same message, also under ``python -O``."""
+    hs = _unfit_histories()
+    jb = JB.pack_batch(hs, JM.cas_register())
+    tb = TB.pack_batch(hs, TM.cas_register())
+    assert jb.P == tb.P == 10
+    with pytest.raises(AssertionError) as want:
+        JB.check_batch(jb, F=64, engine=engine)
+    with pytest.raises(AssertionError) as got:
+        TB.check_batch(tb, F=64, engine=engine, device="cpu")
+    assert type(got.value) is type(want.value)
+    assert str(got.value) == str(want.value)
+    assert str(got.value)
+
+
+def test_the_layout_errors_survive_python_O(tmp_path):
+    """The port's two refusals are raised, not asserted: under
+    ``python -O`` they still raise."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent.parent)
+    code = (
+        "import numpy as np\n"
+        "from comdb2_tpu_torch.checker import linear_torch as LT\n"
+        "z = np.zeros((1, 1, 1), np.int32)\n"
+        "s = np.zeros((2, 2), np.int32)\n"
+        "out = []\n"
+        "for f in (LT.check_device_flat, LT.check_device_keys):\n"
+        "    try:\n"
+        "        f(s, z, z, z[0], z[0, 0], B=1, F=8, P=16,\n"
+        "          n_states=1 << 20, n_transitions=1 << 12, device='cpu')\n"
+        "    except AssertionError as e:\n"
+        "        out.append(str(e))\n"
+        "print(out)\n")
+    r = subprocess.run([sys.executable, "-O", "-c", code],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(tmp_path),
+                       env={**os.environ, "PYTHONPATH": root})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == str(
+        ["flat engine requires the packed-key budget to fit",
+         "key layout must fit 62 bits"])
 
 
 @pytest.mark.parametrize("P", [1, 2, 4, 5, 8, 9, 16])

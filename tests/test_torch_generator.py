@@ -7,6 +7,11 @@ package's generator is drawn from on this one thread through
 ``op(gen, test, process)``. The op streams must be equal (no tolerance:
 every value is a string, an int, a tuple of them or None). Time-based
 combinators compare structure (op types and processes), not counts.
+
+Also the reconnect wrapper (``control/reconnect.py``: reuse, teardown on
+failure, reopen, bounded retries) and OS setup (``harness/os_setup.py``:
+the commands ``DebianOS``, ``SmartOS`` and ``setup_hostfile`` issue over
+a ``RecordingRemote``), equal to the JAX package's.
 """
 
 import random
@@ -14,12 +19,20 @@ import time
 
 import pytest
 
+from comdb2_tpu import control as JCTL
+from comdb2_tpu.control import reconnect as JRC
+from comdb2_tpu.control import remote as JREM
 from comdb2_tpu.harness import generator as JG
 from comdb2_tpu.harness import independent_gen as JIG
+from comdb2_tpu.harness import os_setup as JOS
 from comdb2_tpu.workloads import comdb2 as JW
 
+from comdb2_tpu_torch import control as TCTL
+from comdb2_tpu_torch.control import reconnect as TRC
+from comdb2_tpu_torch.control import remote as TREM
 from comdb2_tpu_torch.harness import generator as TG
 from comdb2_tpu_torch.harness import independent_gen as TIG
+from comdb2_tpu_torch.harness import os_setup as TOS
 from comdb2_tpu_torch.workloads import comdb2 as TW
 
 from torch_harness_parity import gen_stream
@@ -184,3 +197,110 @@ def test_concurrent_generator_rejects_what_the_reference_rejects():
         with G.with_threads(THREADS):
             with pytest.raises(AssertionError, match="integer worker"):
                 G.op(g, TEST, "nemesis")
+
+
+# --- the reconnect wrapper (control/reconnect.py) ----------------------------
+
+class _Fragile:
+    def __init__(self, gen_):
+        self.gen = gen_
+
+
+def _reconnect_trace(reconnect):
+    """Drive a wrapper through reuse, a failure, a reopen, retries that
+    succeed and retries that run out; returns every observable."""
+    opens, closed, out = [], [], []
+
+    def open_fn():
+        opens.append(1)
+        return _Fragile(len(opens))
+
+    w = reconnect.wrapper(open_fn, lambda c: closed.append(c.gen),
+                          name="sut")
+    out.append(w.with_conn(lambda c: c.gen))
+    out.append(w.with_conn(lambda c: c.gen))
+
+    def boom(c):
+        raise IOError("dropped")
+
+    try:
+        w.with_conn(boom)
+    except IOError as e:
+        out.append(("raised", str(e)))
+    out.append(list(closed))
+    out.append(w.with_conn(lambda c: c.gen))
+    calls = []
+
+    def flaky(c):
+        calls.append(c.gen)
+        if len(calls) == 1:
+            raise IOError("once")
+        return c.gen
+
+    out.append(w.with_retry(flaky, retries=3, delay=0))
+    try:
+        w.with_retry(boom, retries=2, delay=0)
+    except IOError as e:
+        out.append(("exhausted", str(e)))
+    w.reopen()
+    out.append(w.with_conn(lambda c: c.gen))
+    w.close()
+    w.close()                       # closing twice is a no-op
+
+    def bad_close(c):
+        raise OSError("close failed")
+
+    w2 = reconnect.Wrapper(open_fn, bad_close).open()
+    w2.close()                      # a failing close is swallowed
+    out.append((len(opens), list(closed), list(calls), w.name, w2.name))
+    return out
+
+
+def test_reconnect_wrapper_equals_the_references():
+    got = _reconnect_trace(TRC)
+    assert got == _reconnect_trace(JRC)
+    assert got[:4] == [1, 1, ("raised", "dropped"), [1]]
+    assert got[4] == 2
+
+
+# --- OS setup (harness/os_setup.py) -------------------------------------------
+
+def _os_commands(CTL, REM, OSS, which, kw):
+    rec = REM.RecordingRemote()
+    test = {"nodes": ["n1", "n2"], "remote": rec}
+    os_ = getattr(OSS, which)(**kw)
+    CTL.on_nodes(test, os_.setup)
+    CTL.on_nodes(test, os_.teardown)
+    out = {}
+    for h, c in rec.commands:
+        out.setdefault(h, []).append(c)
+    return out
+
+
+@pytest.mark.parametrize("which,kw", [
+    ("DebianOS", dict(packages=["ntpdate", "iptables"],
+                      node_ips={"n1": "10.0.0.1", "n2": "10.0.0.2"})),
+    ("DebianOS", dict(update=False)),
+    ("DebianOS", dict(packages=["a b"], node_ips={"n'1": "1.2.3.4"})),
+    ("SmartOS", dict(packages=["gcc", "gmake"])),
+    ("SmartOS", dict())])
+def test_os_setup_commands_equal_the_references(which, kw):
+    got = _os_commands(TCTL, TREM, TOS, which, kw)
+    assert got == _os_commands(JCTL, JREM, JOS, which, kw)
+    if which == "DebianOS" and kw.get("node_ips"):
+        cmds = got["n1"]
+        assert any("/etc/hostname" in c for c in cmds)
+        assert any("apt-get install -y" in c for c in cmds)
+
+
+def test_setup_hostfile_equals_the_reference():
+    out = []
+    for CTL, REM, OSS in ((TCTL, TREM, TOS), (JCTL, JREM, JOS)):
+        rec = REM.RecordingRemote()
+        with CTL.with_session(CTL.Session("n2", rec)):
+            OSS.setup_hostfile("n2", {"n1": "10.0.0.1", "n2": "10.0.0.2",
+                                      "n3": "10.0.0.3"})
+            OSS.setup_hostfile("n2")
+        out.append(rec.commands)
+    assert out[0] == out[1]
+    assert any("10.0.0.3 n3" in c for _, c in out[0])

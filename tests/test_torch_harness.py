@@ -10,7 +10,9 @@ which must give equal results; and the JAX harness's recorded history
 goes through the port's. Results compare with ``==`` after
 ``torch_harness_parity.plain`` (ops as plain tuples; the engine labels
 dropped, which name the engine, not the verdict). The port's checkers
-run at ``device="cpu"``.
+run at ``device="cpu"``. The repl helpers (``harness/repl.py``) reload
+a saved run and re-check it through the port's checkers, as the JAX
+package's do.
 """
 
 import os
@@ -359,3 +361,50 @@ def test_history_and_op_conversion():
         {"type": "ok", "f": "w", "value": 2, "process": 9}, 3, 5)) == \
         P.op_fields(JCORE._op_from_dict(
             {"type": "ok", "f": "w", "value": 2, "process": 9}, 3, 5))
+
+
+# --- the repl helpers (harness/repl.py) ----------------------------------------
+
+class _Raising(TC.Checker):
+    def check(self, test, model, history, opts=None):
+        raise RuntimeError("checker broke")
+
+
+def test_repl_last_test_and_recheck(tmp_path):
+    """A run saved by the port's harness reloads through both packages'
+    ``last_test`` to the same history, and ``recheck`` through the
+    port's checkers (on CPU tensors) gives the JAX package's result, an
+    error included."""
+    from comdb2_tpu.harness import repl as JREPL
+    from comdb2_tpu_torch.harness import repl
+
+    random.seed(3)
+    state = TF.Atom()
+    t = TF.noop_test(device="cpu")
+    store = str(tmp_path / "store")
+    t.update({"nodes": [], "concurrency": 3, "name": "repl-test",
+              "store-root": store, "db": TF.atom_db(state),
+              "client": TF.atom_client(state), "model": TM.cas_register(),
+              "generator": TG.clients(TG.limit(12, TG.cas_gen))})
+    TCORE.run(t)
+    loaded = repl.last_test("repl-test", store)
+    jloaded = JREPL.last_test("repl-test", store)
+    assert loaded is not None and jloaded is not None
+    assert [P.op_fields(o) for o in loaded["history"]] == \
+        [P.op_fields(o) for o in jloaded["history"]]
+    assert repl.last_test("no-such-test", store) is None
+    r = repl.recheck(loaded, TC.Linearizable(device="cpu"),
+                     TM.cas_register())
+    want = JREPL.recheck(jloaded, JC.linearizable, JM.cas_register())
+    assert P.plain(r) == P.plain(want)
+    assert r["valid?"] is True
+    broken = repl.recheck(loaded, _Raising(), TM.cas_register())
+    assert broken["valid?"] == "unknown"
+    assert "checker broke" in broken["error"]
+    assert repl.recheck({}, TC.Linearizable(device="cpu"),
+                        TM.cas_register())["valid?"] is True
+
+    out = tmp_path / "report.txt"
+    with repl.to_file(str(out)):
+        print("report body")
+    assert out.read_text() == "report body\n"

@@ -45,6 +45,15 @@ HARNESS_SLICE = ("harness.generator", "harness.independent_gen",
                  "control.net", "workloads", "workloads.sqlish",
                  "workloads.comdb2", "report.perf", "report.timeline")
 
+#: the cluster slice's modules: the TCP cluster half of the harness
+#: (wire clients, control and nemeses, provisioning, kill-restart, SQL,
+#: fake time, web, repl) and the daemon's timeline SVG
+CLUSTER_SLICE = ("control.reconnect", "workloads.tcp", "workloads.sql",
+                 "harness.provision", "harness.killcluster",
+                 "harness.faketime", "harness.nemesis_time",
+                 "harness.os_setup", "harness.repl", "harness.web",
+                 "report.service_svg")
+
 
 def _forbidden(name: str) -> bool:
     return (name in ("jax", "comdb2_tpu")
@@ -71,7 +80,7 @@ def test_package_has_the_slice_modules():
               "txn.scc", "txn.closure_torch", "txn.counterexample",
               "txn.check", "txn.adapters", "checker.brute",
               "ops.native_loader") + SHRINK_SLICE + STREAM_SLICE \
-            + SERVICE_SLICE + HARNESS_SLICE:
+            + SERVICE_SLICE + HARNESS_SLICE + CLUSTER_SLICE:
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -105,8 +114,8 @@ def test_import_pulls_in_no_jax_in_a_fresh_interpreter():
     assert int(n_loaded) >= 20
     assert bad == "[]"
     assert sorted(set(SHRINK_SLICE) | {
-        m for m in HARNESS_SLICE if m.startswith(("harness", "report"))}) \
-        == eval(slice_mods)
+        m for m in HARNESS_SLICE + CLUSTER_SLICE
+        if m.startswith(("harness", "report"))}) == eval(slice_mods)
     assert sorted(STREAM_SLICE) == eval(stream_mods)
 
 
@@ -118,6 +127,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert set(STREAM_SLICE) <= scanned
     assert set(SERVICE_SLICE) <= scanned
     assert set(HARNESS_SLICE) <= scanned
+    assert set(CLUSTER_SLICE) <= scanned
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):
@@ -209,3 +219,16 @@ def test_new_engines_without_device_raise_when_cuda_is_absent(engine):
         kw.update(B=1, n_states=2, n_transitions=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         getattr(LT, engine)(*args, **kw)
+
+
+@pytest.mark.parametrize("pkg", ["harness", "workloads", "control"])
+def test_package_exports_equal_the_references(pkg):
+    """``harness``, ``workloads`` and ``control`` export what the JAX
+    package's do (the control package also exports its pmux client,
+    which the JAX package keeps in ``control.pmux``)."""
+    import importlib
+
+    got = importlib.import_module(f"comdb2_tpu_torch.{pkg}").__all__
+    want = importlib.import_module(f"comdb2_tpu.{pkg}").__all__
+    extra = {"control": {"PmuxClient", "resolve_layout"}}.get(pkg, set())
+    assert set(got) - extra == set(want)

@@ -326,3 +326,71 @@ def test_independent_checker_writes_per_key_files_equal(tmp_path, base):
         assert (f"{d}/linear.svg" in files) == (k in rt["failures"])
         back = read_edn(files[f"{d}/results.edn"].decode())
         assert back["valid?"] == rt["results"][k]["valid?"]
+
+
+# --- the verifier daemon's timeline (report/service_svg.py) -----------------
+
+def _service_records(seed, n, kinds=("check", "txn", "wl")):
+    rng = random.Random(seed)
+    t, out = 0.0, []
+    for i in range(n):
+        t += rng.random() * 0.3
+        stages = {"queue_wait_ms": rng.random() * 40,
+                  "host_pack_ms": rng.random() * 5,
+                  "device_ms": rng.random() * 12,
+                  "finalize_ms": rng.random()}
+        if i % 7 == 3:
+            del stages["finalize_ms"]      # a partial stage map
+        out.append({"t": t, "lat_ms": sum(stages.values()),
+                    "kind": kinds[i % len(kinds)], "valid": i % 5 != 0,
+                    "stages": stages})
+    return out
+
+
+SERVICE_CASES = {
+    "empty": ([], [], {}),
+    "events-only": ([], [{"t": 2.5, "event": "overload"}], {}),
+    "one-window": (_service_records(1, 12), [], {}),
+    "stages-and-events": (
+        [{"t": 0.2 + i * 0.1, "lat_ms": 5.0 + i, "kind": "check",
+          "valid": True,
+          "stages": {"queue_wait_ms": 2.0, "host_pack_ms": 1.0,
+                     "device_ms": 2.0, "finalize_ms": 0.1}}
+         for i in range(20)],
+        [{"t": 1.0, "event": "overload"}, {"t": 1.5, "event": "deadline"}],
+        {}),
+    "long-run": (_service_records(2, 300),
+                 [{"t": 3.0, "event": "host_degraded"},
+                  {"t": 9.0, "event": "engine_error"},
+                  {"t": 12.0, "event": "no-such-event"}],
+                 {"dt": 0.5, "title": "fleet <a&b>"}),
+    "no-stages": ([{"t": 0.4}, {"t": 1.9, "stages": None}], [], {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVICE_CASES))
+def test_service_timeline_svg_byte_equal(case, tmp_path):
+    """The daemon's stacked stage-latency timeline: the same bytes on
+    the same records, returned and written."""
+    from comdb2_tpu.report import service_svg as JSV
+    from comdb2_tpu_torch.report import service_svg as TSV
+
+    records, events, kw = SERVICE_CASES[case]
+    got_path = tmp_path / "t" / "timeline.svg"
+    got = TSV.render_service_timeline(records, events, path=str(got_path),
+                                      **kw)
+    want = JSV.render_service_timeline(records, events, **kw)
+    assert got == want
+    assert got_path.read_text() == want
+    assert got.startswith("<svg")
+    assert TSV.STAGE_ORDER == JSV.STAGE_ORDER
+
+
+def test_service_timeline_renders_stages_and_events():
+    from comdb2_tpu_torch.report.service_svg import render_service_timeline
+
+    records, events, _ = SERVICE_CASES["stages-and-events"]
+    svg = render_service_timeline(records, events)
+    assert "queue_wait" in svg and "device" in svg
+    assert svg.count("stroke-dasharray") >= 2      # event markers
+    assert render_service_timeline([], []).startswith("<svg")

@@ -8,6 +8,12 @@ against the JAX package's.
 - ``filetest --trace PATH`` writes a trace with the parse, pack,
   device and finalize spans, exits with the same code as without
   ``--trace``, and leaves tracing off.
+- The store's web browser (``harness/web.py``): the index (with the
+  daemon's ``timeline.svg`` and ``trace.json`` links), listings, path
+  resolution, zip archives and the HTTP answers equal the JAX
+  package's on the same store; the daemon's artifact pass writes
+  ``timeline.svg`` byte-equal to the JAX package's renderer on the
+  same records.
 """
 
 import json
@@ -179,3 +185,175 @@ def test_filetest_trace_writes_the_stage_spans(tmp_path, run):
     elif kind == "txn":
         assert "txn.check" in names
     assert doc["otherData"]["dropped_spans"] == 0
+
+
+# --- the store's web browser (harness/web.py) -------------------------------
+
+def _store(root: Path):
+    """A results store with valid, invalid, unknown and unreadable runs,
+    a ``latest`` link, and the verifier daemon's service artifacts."""
+    runs = [("register", "20260101T000000.000", "{:valid? true}"),
+            ("register", "20260102T000000.000",
+             "{:valid? false, :op-index 7}"),
+            ("bank", "20260103T000000.000", "{:valid? :unknown}"),
+            ("bank", "20260104T000000.000", "{:valid? tru"),
+            ("a <b>&c", "20260105T000000.000", "{:valid? true}")]
+    for name, t, results in runs:
+        d = root / name / t
+        d.mkdir(parents=True)
+        (d / "results.edn").write_text(results + "\n")
+        (d / "history.edn").write_text("{:type :invoke}\n")
+        (d / "sub").mkdir()
+        (d / "sub" / "linear.svg").write_text("<svg/>")
+    (root / "register" / "20260106T000000.000").mkdir()   # no results
+    (root / "register" / "latest").symlink_to("20260102T000000.000")
+    (root / "latest").symlink_to("register/20260102T000000.000")
+    svc = root / "service"
+    svc.mkdir()
+    (svc / "latest.json").write_text(json.dumps(
+        {"completed": 12, "dispatches": 3, "queue_depth": 1}))
+    (svc / "timeline.svg").write_text("<svg/>")
+    (svc / "trace.json").write_text("{}")
+    return runs
+
+
+def test_web_index_and_listings_equal_the_references(tmp_path):
+    from comdb2_tpu.harness import web as jweb
+    from comdb2_tpu_torch.harness import web
+
+    runs = _store(tmp_path)
+    root = str(tmp_path)
+    assert web._runs(root) == jweb._runs(root)
+    idx = web._index_html(root)
+    assert idx == jweb._index_html(root)
+    assert "timeline.svg" in idx and "trace.json" in idx
+    assert "12 checked, 3 dispatches, queue 1" in idx
+    for name, t, _ in runs:
+        rel = f"{name}/{t}"
+        assert web._listing_html(root, rel) == jweb._listing_html(root, rel)
+    assert web._runs(str(tmp_path / "missing")) == []
+    assert web.CONTENT_TYPES == jweb.CONTENT_TYPES
+
+
+@pytest.mark.parametrize("rel", [
+    "register/", "/register/20260101T000000.000", "../etc/passwd",
+    "register/../../x", "%2e%2e/secret", "", "service/timeline.svg",
+    "a%20%3Cb%3E%26c/", "register/latest/sub"])
+def test_web_safe_rel_equal(tmp_path, rel):
+    from comdb2_tpu.harness import web as jweb
+    from comdb2_tpu_torch.harness import web
+
+    _store(tmp_path)
+    assert web._safe_rel(str(tmp_path), rel) == \
+        jweb._safe_rel(str(tmp_path), rel)
+
+
+def test_web_zip_of_a_run_holds_the_same_files(tmp_path):
+    import io
+    import zipfile
+
+    from comdb2_tpu.harness import web as jweb
+    from comdb2_tpu_torch.harness import web
+
+    _store(tmp_path)
+    rel = "register/20260101T000000.000"
+
+    def files(data):
+        with zipfile.ZipFile(io.BytesIO(data)) as z:
+            return {n: z.read(n) for n in z.namelist()}
+
+    got = files(web._zip_run(str(tmp_path), rel))
+    assert got == files(jweb._zip_run(str(tmp_path), rel))
+    assert set(got) == {"results.edn", "history.edn", "sub/linear.svg"}
+
+
+def _fetch(port, path):
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        return r.status, r.getheader("Content-Type"), r.read()
+    finally:
+        c.close()
+
+
+def test_web_server_answers_as_the_references(tmp_path):
+    """Both packages' servers on ports from the OS, over HTTP: status,
+    content type and body equal for pages, files, 403 and 404 (the zip
+    archives by their file names)."""
+    import io
+    import zipfile
+
+    from comdb2_tpu.harness import web as jweb
+    from comdb2_tpu_torch.harness import web
+
+    _store(tmp_path)
+    servers = [mod.serve(str(tmp_path), port=0, block=False)
+               for mod in (web, jweb)]
+    try:
+        for path in ("/", "/index.html", "/files/register/",
+                     "/files/service/timeline.svg",
+                     "/files/register/20260101T000000.000/results.edn",
+                     "/files/bank/20260104T000000.000/sub/linear.svg",
+                     "/files/../../etc/passwd", "/files/nope",
+                     "/zip/nope/x", "/other"):
+            got, want = (_fetch(port, path) for _, port in servers)
+            assert got == want, path
+        got, want = (_fetch(port, "/zip/register/20260101T000000.000")
+                     for _, port in servers)
+        assert got[:2] == want[:2] == (200, "application/zip")
+        names = [sorted(zipfile.ZipFile(io.BytesIO(r[2])).namelist())
+                 for r in (got, want)]
+        assert names[0] == names[1]
+    finally:
+        for srv, _ in servers:
+            srv.shutdown()
+            srv.server_close()
+
+
+# --- the daemon's timeline.svg (service/daemon.py) ---------------------------
+
+def test_daemon_writes_timeline_svg_byte_equal(tmp_path):
+    """The port's daemon writes ``<store>/service/timeline.svg`` (where
+    it wrote ``timeline.json`` before), byte-equal to the JAX package's
+    renderer on the same records, and the port's web index links it."""
+    from comdb2_tpu.harness import web as jweb
+    from comdb2_tpu.report.service_svg import render_service_timeline
+    from comdb2_tpu_torch.harness import web
+    from comdb2_tpu_torch.service import VerifierCore
+    from comdb2_tpu_torch.service.daemon import VerifierDaemon
+
+    core = VerifierCore(device="cpu")
+    rng = random.Random(4)
+    now = 100.0
+    for i in range(6):
+        h = register_history(rng, 3, 24, p_info=0.0)
+        if i % 2:
+            h = mutate(rng, h)
+        core.submit({"op": "check", "id": f"r{i}",
+                     "history": history_to_edn(list(h))}, now)
+        now += 0.25
+        core.pump(now, idle=True)
+    for _ in range(50):
+        core.pump(now, idle=True)
+        if len(core.timeline_records()[0]) == 6:
+            break
+        now += 0.01
+    records, events = core.timeline_records()
+    assert len(records) == 6
+    store = tmp_path / "store"
+    d = VerifierDaemon(core, store_root=str(store))
+    try:
+        d._save_artifact()
+    finally:
+        d._sel.close()
+        d._lsock.close()
+    svc = store / "service"
+    assert (svc / "timeline.svg").read_text() == \
+        render_service_timeline(records, events)
+    assert not (svc / "timeline.json").exists()
+    idx = web._index_html(str(store))
+    assert idx == jweb._index_html(str(store))
+    assert "timeline.svg" in idx
