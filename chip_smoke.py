@@ -254,6 +254,21 @@ tensors; each stream launch's longest group and its groups with an
 INVALID lane on the same card tensors, and every group on CPU copies of
 them.
 
+Static analysis on the card, counted as a tenth path (``static
+analysis``): (an1) ``python -m comdb2_tpu_torch.analysis`` over the
+port's tree exits 0, its per-pass times printed; (an2) the Hopper
+budget read back from the built libraries at every production tier
+(``analysis.kernel_budget.check_built``: the library's dynamic shared
+memory equal to the Python mirror and within the card's opt-in limit,
+at least 8 warp-streams per SM, no spill, at most 255 registers);
+(an3) the kernel-surface prover's mixed workload
+(``analysis.compile_surface.mixed_workload``) under the launch guard,
+its variants inside the static inventory, every segment-search launch
+held bit-equal to ``seg_search_reference`` and every pair sort to
+``pair_sort_reference``, and a deliberately unbucketed pair-sort row
+caught; (an4) ``scripts/torch_fuzz_seg.py --device cuda`` at 8 seeds
+per family, the kernel against seg2 with no mismatch.
+
 In the single-history path, (e3) is (e) again with ``filetest --trace``:
 the span totals per stage (parse, pack, device with segments / kernel /
 decode inside, finalize) and the parser that ran — the C++ loader when
@@ -329,7 +344,10 @@ D_PRIME = 512          # (d)'s segments that (d') runs on CPU tensors too
 BF16_FLOPS = 989e12    # the H100's dense bf16 tensor-core peak (SXM)
 CLOSURE_N, CLOSURE_BATCH, CLOSURE_BATCH_N = 4096, 8, 1024   # (t)
 TXN_COUNT = 2400       # (t2): past check_txn's DEVICE_THRESHOLD
-WL_LANES = 256         # (w): lanes per family, padded to the top rung
+WL_LANES = 256         # (w): bank lanes, padded to the top rung
+WL_GEN_LANES = 64      # (w): sets / dirty lanes (their host encoding dominates)
+CLOSURE_RT_N = 2048    # (t): the realtime plane's runs (dense host SCCs)
+ANALYSIS_FUZZ_SEEDS = 8   # (an4): seeds per family
 KEYS, KEY_EVENTS = 256, 2000                                 # (i)
 J_LANES, J_EVENTS, J_OVERFLOW, J_F = 128, 2000, 8, 8192     # (j), (j2)
 S10_EVENTS, S_EVENTS, SHRINK_F = 10_000, 100_000, 1024      # (s10), (s)
@@ -807,23 +825,14 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _closure_requests(dev, rec):
-    """(t): the closure at the top of the bench, N = 4096, dense with
-    the realtime plane, valid and with one back edge closing a G2
-    cycle, realtime on and off, each bit-equal to the host SCC; then 8
-    graphs at N = 1024 in one batched call."""
+def _back_edge_pair(seed: int, n: int):
+    """A dense graph of ``n`` txns with the realtime plane, and its twin
+    with one rw edge back to txn 0 from the last txn that txn 0 reaches
+    through ww / wr / rw edges: a cycle that needs the rw plane
+    (G2-item), with the realtime plane and without it."""
     import numpy as np
-    import torch
 
-    from comdb2_tpu_torch.txn import closure_torch as TCL
-    from comdb2_tpu_torch.txn.scc import cyclic_layers_host
-
-    n = CLOSURE_N
-    t0 = time.perf_counter()
-    adj = make_graph(random.Random(4096), n, dense=True)
-    # an rw edge back to txn 0 from the last txn that txn 0 reaches
-    # through ww / wr / rw edges closes a cycle that needs the rw plane
-    # (G2-item), with the realtime plane and without it
+    adj = make_graph(random.Random(seed), n, dense=True)
     reach = np.zeros(n, bool)
     reach[0] = True
     frontier = reach.copy()
@@ -833,10 +842,31 @@ def _closure_requests(dev, rec):
         reach |= frontier
     cyc = adj.copy()
     cyc[2, int(np.flatnonzero(reach)[-1]), 0] = True
+    return adj, cyc
+
+
+def _closure_requests(dev, rec):
+    """(t): the closure at the top of the bench, N = 4096, dense with
+    the realtime plane, valid and with one back edge closing a G2
+    cycle, realtime off, each bit-equal to the host SCC, and the same
+    pair at N = CLOSURE_RT_N with realtime on (the realtime plane's
+    dense host SCCs are the slow side); then 8 graphs at N = 1024 in
+    one batched call."""
+    import numpy as np
+    import torch
+
+    from comdb2_tpu_torch.txn import closure_torch as TCL
+    from comdb2_tpu_torch.txn.scc import cyclic_layers_host
+
+    n = CLOSURE_N
+    t0 = time.perf_counter()
+    adj, cyc = _back_edge_pair(4096, n)
+    pairs = {False: (adj, cyc),
+             True: _back_edge_pair(CLOSURE_RT_N, CLOSURE_RT_N)}
     t_gen = time.perf_counter() - t0
     runs = []
-    for label, a in (("valid", adj), ("back edge", cyc)):
-        for realtime in (True, False):
+    for realtime in (True, False):
+        for label, a in zip(("valid", "back edge"), pairs[realtime]):
             t0 = time.perf_counter()
             host = cyclic_layers_host(a, realtime=realtime)
             t_host = time.perf_counter() - t0
@@ -847,10 +877,12 @@ def _closure_requests(dev, rec):
             wall = time.perf_counter() - t0
             same = bool(np.array_equal(got, host))
             runs.append({"graph": label, "realtime": realtime,
+                         "N": int(a.shape[1]),
                          "equal": same, "calls": TCL.DISPATCHES - d0,
                          "cyclic_per_layer": host.sum(1).tolist(),
                          "wall_s": wall, "host_s": t_host})
-            print(f"  t {label}, realtime {realtime}: closure_diag "
+            print(f"  t {label} N={a.shape[1]}, realtime {realtime}: "
+                  f"closure_diag "
                   f"{'bit-equal' if same else 'DIFFERENT'} to the host SCC, "
                   f"cyclic per layer {host.sum(1).tolist()}; wall "
                   f"{wall * 1e3:.1f} ms (pack, upload, squarings, readback), "
@@ -859,7 +891,8 @@ def _closure_requests(dev, rec):
                     f"(t) closure_diag differs from the host SCC or took "
                     f"{TCL.DISPATCHES - d0} calls: {runs[-1]}")
     _expect(not runs[0]["cyclic_per_layer"][2]
-            and runs[2]["cyclic_per_layer"][2] > 0
+            and not runs[2]["cyclic_per_layer"][2]
+            and runs[1]["cyclic_per_layer"][2] > 0
             and runs[3]["cyclic_per_layer"][2] > 0,
             f"(t) the back edge did not close a G2 cycle: {runs}")
     # card time of the device program alone (planes already uploaded)
@@ -1050,8 +1083,9 @@ def _plant(family, histories):
 
 
 def _wl_requests(dev, rec):
-    """(w): the three families at the top rungs, WL_LANES each, valid
-    and with their violation twins; every lane against the host oracle,
+    """(w): the three families at the top rungs (WL_LANES bank lanes,
+    WL_GEN_LANES sets and dirty lanes, each batch padded to the top
+    rung), valid and with their violation twins; every lane against the host oracle,
     one device call per batch; the device program timed alone."""
     import torch
 
@@ -1063,9 +1097,9 @@ def _wl_requests(dev, rec):
         "bank": (lambda: W.bank_batch(1, WL_LANES, n_accounts=8,
                                        n_transfers=512, n_reads=512),
                  "total"),
-        "sets": (lambda: (W.sets_batch(2, WL_LANES, n_adds=8000), None),
-                 "lost"),
-        "dirty": (lambda: (W.dirty_batch(3, WL_LANES, n_writes=8000,
+        "sets": (lambda: (W.sets_batch(2, WL_GEN_LANES, n_adds=8000),
+                          None), "lost"),
+        "dirty": (lambda: (W.dirty_batch(3, WL_GEN_LANES, n_writes=8000,
                                          n_reads=512, n_nodes=16), None),
                   "dirty"),
     }
@@ -4378,6 +4412,167 @@ def _cluster_checks(rec, launches):
             f"or unlike the host checker: {c3}, launches {launches}")
 
 
+# --- path 10: static analysis on the card ------------------------------------
+
+class _PairSortLog:
+    """Every ``pair_sort`` call on the card while installed, with copies
+    of its inputs and outputs, for holding against the plain version."""
+
+    def __init__(self):
+        self.calls = []
+        self._real = None
+
+    def install(self):
+        from comdb2_tpu_torch.checker import pair_sort as PSORT
+
+        real = self._real = PSORT.pair_sort
+        log = self
+
+        def logged(hi, lo, lib=None):
+            out = real(hi, lo, lib)
+            if hi.is_cuda:
+                log.calls.append((hi.clone(), lo.clone(), out[0].clone(),
+                                  out[1].clone()))
+            return out
+        PSORT.pair_sort = logged
+
+    def uninstall(self):
+        from comdb2_tpu_torch.checker import pair_sort as PSORT
+
+        PSORT.pair_sort = self._real
+
+    def hold(self) -> int:
+        """Max abs difference of every logged call from
+        ``pair_sort_reference`` on the same card tensors."""
+        from comdb2_tpu_torch.checker import pair_sort as PSORT
+
+        err = 0
+        for hi, lo, h_k, l_k in self.calls:
+            h_p, l_p = PSORT.pair_sort_reference(hi, lo)
+            err = max(err, int((h_k.long() - h_p.long()).abs().max()),
+                      int((l_k.long() - l_p.long()).abs().max()))
+        return err
+
+
+def _analysis_path(zero_counts, counts):
+    """Path 10: (an1) the port's static passes in a child process,
+    overlapping (an2) the Hopper budget read back from the built
+    libraries, (an3) the mixed workload under the launch guard with
+    every launch held against the plain versions, (an4) the fuzz on the
+    card. Returns ``(rec, launches)``; raises ``_Failed`` (or the
+    prover's ``CompileSurfaceError``) on any failure."""
+    import importlib.util
+
+    from comdb2_tpu_torch.analysis import compile_surface, kernel_budget
+
+    rec: dict = {}
+    t_path = time.perf_counter()
+    static = subprocess.Popen(
+        [sys.executable, "-m", "comdb2_tpu_torch.analysis"], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        # (an2) the budget, read back from the built kernels
+        t0 = time.perf_counter()
+        findings, report = kernel_budget.check_built()
+        rec["an2"] = dict(report, wall_s=time.perf_counter() - t0,
+                          findings=[f.format() for f in findings])
+        print(f"  an2 Hopper budget: {report['tiers']} production tiers; "
+              f"at most {report['max_smem_bytes']} bytes of dynamic shared "
+              f"memory per CTA at {kernel_budget._seg_kernel().WARPS_PER_CTA}"
+              f" warps over a {kernel_budget._seg_kernel().MAX_TABLE}-entry "
+              f"table (the library's, equal to the Python mirror at every "
+              f"tier) against the card's opt-in "
+              f"{report['smem_optin_bytes']}; at least "
+              f"{report['min_warp_streams_per_sm']} warp-streams per SM; "
+              f"pair sort {report['pair_sort_smem_bytes']} bytes per CTA")
+        print("  an2 kernels: " + "; ".join(
+            f"{k} {a['registers']} registers, {a['local_bytes']} bytes "
+            f"local" for k, a in report["kernels"].items()))
+        _expect(not findings, f"(an2) the Hopper budget: "
+                              f"{[f.format() for f in findings]}")
+        # (an3) the mixed workload under the guard, every launch held
+        log, sorts = _LaunchLog(), _PairSortLog()
+        log.install()
+        sorts.install()
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            res = compile_surface.mixed_workload("cuda")
+        finally:
+            sorts.uninstall()
+            log.uninstall()
+        launches = counts()
+        rec["an3"] = dict(res, wall_s=time.perf_counter() - t0)
+        print(f"  an3 mixed workload: {len(res['variants'])} variants "
+              f"inside the static inventory "
+              f"({', '.join(res['variants'])}); shrink "
+              f"{res['shrink_steps']} steps; unbucketed control caught: "
+              f"{res['control'].splitlines()[-1].strip()}; "
+              f"{rec['an3']['wall_s']:.2f} s")
+        _expect(res["control"] is not None
+                and {v.split(" ", 1)[0] for v in res["variants"]}
+                == {"seg_search", "seg_search_stream", "pair_sort"},
+                f"(an3) the mixed workload missed a kernel: {res}")
+        err, held, plain_ms = _hold_launches(log, "path 10")
+        err_p = sorts.hold()
+        rec["an3"]["hold"] = {"launches": len(log.launches),
+                              "max_abs_err": err, "plain_ms": plain_ms,
+                              "pair_sort_calls": len(sorts.calls),
+                              "pair_sort_max_abs_err": err_p}
+        print(f"  an3 {len(log.launches)} segment-search launches "
+              f"bit-equal to seg_search_reference (plain {plain_ms:.1f} "
+              f"ms for all); {len(sorts.calls)} pair_sort calls "
+              f"{'bit-equal' if err_p == 0 else f'max diff {err_p}'} to "
+              f"pair_sort_reference")
+        _expect(err_p == 0, f"(an3) pair_sort differs from its plain "
+                            f"version: max diff {err_p}")
+        # (an4) the fuzz on the card
+        spec = importlib.util.spec_from_file_location(
+            "torch_fuzz_seg", os.path.join(HERE, "scripts",
+                                           "torch_fuzz_seg.py"))
+        fuzz = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(fuzz)
+        out = os.path.join(HERE, "chiprun_out", "fuzz_torch.json")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = fuzz.main([str(ANALYSIS_FUZZ_SEEDS), "--device", "cuda",
+                        "--out", out])
+        fuzz_counts = counts()
+        with open(out) as fh:
+            art = json.load(fh)
+        rec["an4"] = {"rc": rc, "wall_s": time.perf_counter() - t0,
+                      "artifact": art, "launches": fuzz_counts}
+        print(f"  an4 fuzz at {ANALYSIS_FUZZ_SEEDS} seeds per family: "
+              f"{art['verdict']}, {art['total_cross_checked']} cross-checked"
+              f" against seg2, {art['renamed_slots_cross_checked']} renamed, "
+              f"{art['stream_histories_cross_checked']} streamed; "
+              f"{rec['an4']['wall_s']:.2f} s")
+        _expect(rc == 0 and art["verdict"] == "PASS",
+                f"(an4) the fuzz failed: {art}")
+        for k, v in fuzz_counts.items():
+            launches[k] += v
+        # (an1) the static passes, joined last
+        t0 = time.perf_counter()
+        out_s, err_s = static.communicate(timeout=600)
+        rec["an1"] = {"rc": static.returncode,
+                      "passes": [ln for ln in err_s.splitlines()
+                                 if ln.startswith("pass ")],
+                      "waited_s": time.perf_counter() - t0}
+        print(f"  an1 python -m comdb2_tpu_torch.analysis: exit "
+              f"{static.returncode}, {out_s.strip().splitlines()[-1:]}; "
+              + "; ".join(ln[5:] for ln in rec["an1"]["passes"]))
+        _expect(static.returncode == 0,
+                f"(an1) the static passes failed:\n{out_s}{err_s}")
+    finally:
+        if static.poll() is None:
+            static.kill()
+            static.wait()
+    rec["wall_s"] = time.perf_counter() - t_path
+    return rec, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4471,6 +4666,7 @@ def main() -> int:
                 "stream_megabatch": TE.MEGABATCHES}
 
     # --- path 1: single-history analysis, counted ---------------------------
+    t_p1 = time.perf_counter()
     results = {}
     zero_counts()
 
@@ -4568,6 +4764,7 @@ def main() -> int:
             return _fail(msg)
     print(f"b: first INVALID mutate seed {b_seed}")
     print(f"LAUNCHES seg_search (single-history path): {launches}")
+    print(f"  (path 1 took {time.perf_counter() - t_p1:.1f} s)")
 
     # --- (d'): seg2 on the card against seg2 on CPU tensors ---------------
     packed_d = pack_history(h_d)
@@ -4612,6 +4809,7 @@ def main() -> int:
                      f"or not VALID (all of (d) on the card: {r_full})")
 
     # --- path 2: batches, counted -----------------------------------------
+    t_p2 = time.perf_counter()
     t0 = time.perf_counter()
     cols = SC.register_batch_columns(11_000_000, G_HISTORIES, G_OPS,
                                      n_procs=5, values=5)
@@ -4735,10 +4933,12 @@ def main() -> int:
     for ok, msg in checks:
         if not ok:
             return _fail(msg)
+    print(f"  (path 2 took {time.perf_counter() - t_p2:.1f} s)")
 
     # --- path 3: the checker layer, counted -------------------------------
     print("checker layer: closure (t), check_txn (t2), workload families "
           "(w), IndependentChecker (i), filetest --checker (e2)")
+    t_p3 = time.perf_counter()
     zero_counts()
     try:
         checker_rec = _checker_layer(dev)
@@ -4750,6 +4950,7 @@ def main() -> int:
     path_counts["checker layer"]["seg_search"] -= \
         checker_rec["i"]["comparison_launches"]
     print(f"LAUNCHES (checker-layer path): {path_counts['checker layer']}")
+    print(f"  (path 3 took {time.perf_counter() - t_p3:.1f} s)")
     if not (path_counts["checker layer"]["seg_search[stream]"] > 0
             and path_counts["checker layer"]["closure_diag"] > 0
             and path_counts["checker layer"]["wl_check"] > 0):
@@ -4780,6 +4981,26 @@ def main() -> int:
             and path_counts["last batch engines"]["pair_sort"] > 0):
         return _fail(f"the last-batch-engines path launched no stream "
                      f"kernel or pair sort: {path_counts}")
+
+    # --- path 8: the Jepsen harness, counted -------------------------------
+    # (run before paths 5-7: (x2)'s plain re-check in a child process, up
+    # to 346 s at the seg2 ladder's top rung, then overlaps them too)
+    print("harness: core.run in process on the card — (x1) the register "
+          "test, (x2) with a chaos backend, (x3) the jepsen.independent "
+          "shape, (x4) a stale read, (x5) lossy sets and broken G2 "
+          "backends; each history re-checked by the plain versions")
+    t0 = time.perf_counter()
+    try:
+        harness_rec, path_counts["harness"], harness_pending = \
+            _harness_path(zero_counts, counts)
+    except _Failed as e:
+        return _fail(str(e))
+    print(f"LAUNCHES (harness path): {path_counts['harness']}")
+    print(f"  (path 8 took {time.perf_counter() - t0:.1f} s)")
+    if not (path_counts["harness"]["seg_search[stream]"] > 0
+            and path_counts["harness"]["seg_search"] > 0):
+        return _fail(f"the harness path launched no segment-search "
+                     f"kernel in one of its modes: {path_counts['harness']}")
 
     # --- path 5: shrink, counted ------------------------------------------
     print("shrink: minimize (s10) 10k and (s) 100k events, txn minimal "
@@ -4841,24 +5062,6 @@ def main() -> int:
         return _fail(f"the service path launched a kernel no time: "
                      f"{path_counts['service']}")
 
-    # --- path 8: the Jepsen harness, counted -------------------------------
-    print("harness: core.run in process on the card — (x1) the register "
-          "test, (x2) with a chaos backend, (x3) the jepsen.independent "
-          "shape, (x4) a stale read, (x5) lossy sets and broken G2 "
-          "backends; each history re-checked by the plain versions")
-    t0 = time.perf_counter()
-    try:
-        harness_rec, path_counts["harness"], harness_pending = \
-            _harness_path(zero_counts, counts)
-    except _Failed as e:
-        return _fail(str(e))
-    print(f"LAUNCHES (harness path): {path_counts['harness']}")
-    print(f"  (path 8 took {time.perf_counter() - t0:.1f} s)")
-    if not (path_counts["harness"]["seg_search[stream]"] > 0
-            and path_counts["harness"]["seg_search"] > 0):
-        return _fail(f"the harness path launched no segment-search "
-                     f"kernel in one of its modes: {path_counts['harness']}")
-
     # --- path 9: the TCP cluster, counted ---------------------------------
     print("cluster: the TCP cluster half of the harness on the card — (c1) "
           "register-test-nemesis over five sut_node nodes, (c2) the -B "
@@ -4877,6 +5080,25 @@ def main() -> int:
         return _fail(f"the cluster path launched no single-history "
                      f"segment search or no closure: "
                      f"{path_counts['cluster']}")
+
+    # --- path 10: static analysis on the card, counted --------------------
+    print("static analysis: (an1) the port's passes, (an2) the Hopper "
+          "budget read back from the built kernels, (an3) the mixed "
+          "workload under the launch guard, (an4) the segment-search fuzz")
+    t0 = time.perf_counter()
+    try:
+        analysis_rec, path_counts["static analysis"] = _analysis_path(
+            zero_counts, counts)
+    except (_Failed, AssertionError) as e:
+        return _fail(f"path 10: {e}")
+    print(f"LAUNCHES (static-analysis path): "
+          f"{path_counts['static analysis']}")
+    print(f"  (path 10 took {time.perf_counter() - t0:.1f} s)")
+    if not (path_counts["static analysis"]["seg_search"] > 0
+            and path_counts["static analysis"]["seg_search[stream]"] > 0
+            and path_counts["static analysis"]["pair_sort"] > 0):
+        return _fail(f"the static-analysis path launched a kernel no "
+                     f"time: {path_counts['static analysis']}")
 
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
@@ -5305,6 +5527,7 @@ def main() -> int:
                    "last_batch_engines": escal_rec, "shrink": shrink_rec,
                    "stream": stream_rec, "service": service_rec,
                    "harness": harness_rec, "cluster": cluster_rec,
+                   "static_analysis": analysis_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

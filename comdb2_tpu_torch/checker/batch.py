@@ -730,7 +730,10 @@ def _check_batch_begin(batch: PackedBatch, F: int, mesh, engine: str,
          + int(sb.ok_proc.nbytes) + int(sb.depth.nbytes))
     if sharded:
         ip, it, op_, dp = _pad_batch_axis(sb, B_pad - B)
-        status_d, fail_seg_d, n_final_d = LT.check_device_keys_sharded(
+        # B_pad is the raw batch width at D = 1, by design: the sharded
+        # keys / flat bodies run eagerly on each device and no kernel
+        # layout depends on B (the pair sort's rows are F (P + 1) wide)
+        status_d, fail_seg_d, n_final_d = LT.check_device_keys_sharded(  # analysis: ignore[unbucketed-dispatch-site]
             mesh, succ, ip, it, op_, dp, B=B_pad, F=F, P=P, engine=engine,
             **sizes)
     else:

@@ -1633,8 +1633,10 @@ def check_sharded(mesh, succ, kind, proc, tr, *, F: int, P: int,
     for d in range(D):
         dev = torch.device(mesh[d])
         sl = slice(d * g, (d + 1) * g)
+        # one call per mesh device, by design: a test oracle, never on
+        # the batch path
         with on_device(dev):
-            outs.append(check_device_batch(
+            outs.append(check_device_batch(  # analysis: ignore[per-item-dispatch]
                 succ, np.asarray(kind)[sl], np.asarray(proc)[sl],
                 np.asarray(tr)[sl], F=F, P=P, n_states=n_states,
                 n_transitions=n_transitions, device=dev))

@@ -685,6 +685,29 @@ def warp_streams_per_sm(spec: SegKernelSpec, table_n: int) -> int:
     return per_sm
 
 
+def kernel_attrs(lib=None):
+    """What the loaded library's kernels were compiled to, read from the
+    library itself (so the same on a fresh or a cached build): by key
+    width ``W`` (1, 2, 3), ``registers`` and ``local_bytes`` (spills)
+    per thread, ``static_smem_bytes`` and ``max_threads`` per CTA, and
+    ``smem_optin_bytes``, the dynamic shared memory a CTA of the current
+    device may opt into. Card only."""
+    from ..kernels import build
+
+    lib = build.load() if lib is None else lib
+    attrs = {}
+    for W in (1, 2, 3):
+        out = (ctypes.c_int * 5)()
+        err = lib.seg_search_attrs(W, out)
+        if err != 0:
+            raise RuntimeError(f"seg_search attribute query failed: CUDA "
+                               f"error {err} ({build.error_string(err)})")
+        attrs[W] = dict(zip(("registers", "local_bytes",
+                             "static_smem_bytes", "max_threads",
+                             "smem_optin_bytes"), out))
+    return attrs
+
+
 #: :func:`wave_streams` by CUDA device index
 _WAVES: dict = {}
 

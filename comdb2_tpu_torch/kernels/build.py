@@ -149,6 +149,11 @@ def load(name: str = "seg_search", defines=()) -> ctypes.CDLL:
         lib.seg_search_launch.restype = i
         lib.seg_search_occupancy.argtypes = [ctypes.POINTER(SegLayout), i]
         lib.seg_search_occupancy.restype = i
+        lib.seg_search_smem_bytes.argtypes = [ctypes.POINTER(SegLayout),
+                                              i, i]
+        lib.seg_search_smem_bytes.restype = ctypes.c_longlong
+        lib.seg_search_attrs.argtypes = [i, ctypes.POINTER(i)]
+        lib.seg_search_attrs.restype = i
     else:
         lib.pair_sort_launch.argtypes = [p, p, p, p, p, i, i, p]
         lib.pair_sort_launch.restype = i

@@ -916,6 +916,39 @@ extern "C" int seg_search_occupancy(const SegLayout* lay, int table_n) {
   return blocks * MAX_WARPS;
 }
 
+// Dynamic shared memory of a CTA of `warps` warps at this layout over a
+// table of `table_n` entries, as the launch requests it (0 when the
+// layout is refused): the Hopper budget pass holds its Python mirror to
+// this at every production tier.
+extern "C" long long seg_search_smem_bytes(const SegLayout* lay, int table_n,
+                                           int warps) {
+  if (!layout_ok(lay, table_n) || warps < 1 || warps > MAX_WARPS) return 0;
+  return (long long)smem_bytes(lay, table_n, warps);
+}
+
+// What the loaded library's kernel for W key words was compiled to:
+// out[0] registers per thread, out[1] local (spill) bytes per thread,
+// out[2] static shared bytes per CTA, out[3] the most threads per CTA it
+// launches with, and out[4] the dynamic shared memory a CTA of the
+// current device may opt into.
+extern "C" int seg_search_attrs(int W, int* out) {
+  if (W < 1 || W > MAX_W) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, (const void*)kernel_for(W));
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&out[4],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
+}
+
 #ifdef SEG_PROFILE
 extern "C" int seg_search_profile(unsigned long long* out, int reset) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));

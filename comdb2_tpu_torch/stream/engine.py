@@ -68,7 +68,7 @@ from ..checker import mxu as MXU
 from ..checker import seg_kernel as SK
 from ..obs import trace as _obs
 from ..utils import next_pow2 as _next_pow2
-from ..utils import resolve_device
+from ..utils import resolve_device, upload
 
 #: padded segments per delta dispatch on the xla and mxu rungs — the
 #: pow2 ladder every append is bucketed onto (floor 16: tiny appends
@@ -590,11 +590,18 @@ class MegaBatch:
         t0 = _obs.monotonic()
         b_real = len(chunk)
         b_pad = next(b for b in MEGABATCH_LANES if b >= b_real)
-        lanes = []
-        for ln in chunk:
+        # every lane's rows in ONE upload (pinned, non-blocking), each
+        # lane a contiguous view of it: a blocking copy per lane would
+        # hold the host until the card drained, once per lane
+        rows = [np.ascontiguousarray(ln.pack_fn(), np.int32)
+                for ln in chunk]
+        flat = upload(np.concatenate([r.reshape(-1) for r in rows]),
+                      chunk[0].eng.device)
+        lanes, at = [], 0
+        for ln, r in zip(chunk, rows):
             eng = ln.eng
-            seg = torch.from_numpy(np.ascontiguousarray(
-                ln.pack_fn())).to(eng.device)
+            seg = flat[at:at + r.size].view(r.shape)
+            at += r.size
             lanes.append((seg, int(ln.seg_offset), eng.nt, eng.ws,
                           eng.stat, ln.table, eng.spec))
         DISPATCHES += 1

@@ -23,6 +23,7 @@ from comdb2_tpu_torch.ops.op import Op
 from comdb2_tpu_torch.workloads import tcp as TT
 
 import torch_cluster_parity as CP
+from torch_cluster_parity import native_build  # noqa: F401 (fixture)
 import torch_harness_parity as P
 
 

@@ -654,3 +654,45 @@ def test_service_ring_finishes_a_dispatch_once_its_event_polls_done(cuda):
         assert CG.card_ms() > ms0
     finally:
         CG.time_launches(False)
+
+
+def test_budget_read_back_from_the_built_kernels(cuda):
+    """The Hopper budget's card half: at every production tier the
+    library's dynamic shared memory equals the Python mirror and fits
+    the card's opt-in limit, an SM holds at least 8 warp-streams, and
+    no kernel spills or passes 255 registers."""
+    from comdb2_tpu_torch.analysis import kernel_budget
+
+    findings, report = kernel_budget.check_built()
+    assert findings == [], [f.format() for f in findings]
+    assert report["tiers"] == len(kernel_budget.production_tiers())
+    assert report["max_smem_bytes"] <= report["smem_optin_bytes"]
+    assert report["min_warp_streams_per_sm"] >= 8
+
+
+def test_mixed_workload_stays_inside_the_inventory(cuda):
+    """The kernel-surface prover's runtime half: the mixed workload
+    launches both kernels, every variant inside the static inventory,
+    and the unbucketed pair-sort row is caught."""
+    from comdb2_tpu_torch.analysis import compile_surface as CS
+
+    res = CS.mixed_workload("cuda")
+    kernels = {v.split(" ", 1)[0] for v in res["variants"]}
+    assert kernels == {"seg_search", "seg_search_stream", "pair_sort"}
+    assert "pair_sort" in res["control"]
+
+
+def test_fuzz_on_the_card(cuda):
+    """The segment-search fuzz, the kernel against seg2, at 4 seeds per
+    family."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "torch_fuzz_seg.py")
+    spec = importlib.util.spec_from_file_location("torch_fuzz_seg", path)
+    fuzz = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fuzz)
+    art = fuzz.run(4, "cuda")
+    assert art["verdict"] == "PASS"
+    assert art["total_cross_checked"] == 16

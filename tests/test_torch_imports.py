@@ -55,6 +55,14 @@ CLUSTER_SLICE = ("control.reconnect", "workloads.tcp", "workloads.sql",
                  "report.service_svg")
 
 
+#: the analysis slice's modules: the static-analysis passes over the
+#: port, their Hopper budget and kernel-surface halves
+ANALYSIS_SLICE = ("analysis", "analysis.__main__", "analysis.lint",
+                  "analysis.lifecycle", "analysis.dataflow",
+                  "analysis.kernel_budget", "analysis.bucket_audit",
+                  "analysis.compile_surface")
+
+
 def _forbidden(name: str) -> bool:
     return (name in ("jax", "comdb2_tpu")
             or name.startswith(("jax.", "comdb2_tpu.")))
@@ -80,7 +88,8 @@ def test_package_has_the_slice_modules():
               "txn.scc", "txn.closure_torch", "txn.counterexample",
               "txn.check", "txn.adapters", "checker.brute",
               "ops.native_loader") + SHRINK_SLICE + STREAM_SLICE \
-            + SERVICE_SLICE + HARNESS_SLICE + CLUSTER_SLICE:
+            + SERVICE_SLICE + HARNESS_SLICE + CLUSTER_SLICE \
+            + ANALYSIS_SLICE:
         assert f"comdb2_tpu_torch.{m}" in mods, m
     for src in ("seg_search.cu", "pair_sort.cu"):
         assert (PKG / "kernels" / src).exists(), src
@@ -128,6 +137,7 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert set(SERVICE_SLICE) <= scanned
     assert set(HARNESS_SLICE) <= scanned
     assert set(CLUSTER_SLICE) <= scanned
+    assert set(ANALYSIS_SLICE) <= scanned
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text(), str(path))
         for node in ast.walk(tree):

@@ -1,12 +1,14 @@
 """The port's native EDN loader (``ops/native_loader.py``) against the
 Python reader and the JAX package's loader.
 
-The parity tests need ``native/build/libct_sut.so`` (``cmake -S native
--B native/build && cmake --build native/build``) and skip without it,
-like the JAX package's own. The fallback tests run everywhere: with no
-library every text goes through the port's Python reader and says so.
+The parity tests load ``libct_sut.so`` from ``native/build`` when it is
+built there, else from a build the ``native_build`` fixture
+(``tests/torch_cluster_parity.py``) makes at first use; they skip only
+without cmake or a C++ compiler. The fallback tests run everywhere: with
+no library every text goes through the port's Python reader and says so.
 """
 
+import os
 import random
 from pathlib import Path
 
@@ -18,6 +20,7 @@ from comdb2_tpu_torch.ops import history as H
 from comdb2_tpu_torch.ops import native_loader as NL
 from comdb2_tpu_torch.ops.synth import (list_append_history, mutate,
                                          register_history)
+from torch_cluster_parity import native_build  # noqa: F401 (fixture)
 
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 EDN_FIXTURES = sorted((FIXTURES / "txn").glob("*.edn")) + \
@@ -36,9 +39,14 @@ CTEST_EDN = """[
 
 
 @pytest.fixture()
-def native():
-    if not NL.native_available():
-        pytest.skip("native/build/libct_sut.so not built")
+def native(native_build, monkeypatch):
+    """The port's loader pointed at the ``libct_sut.so`` of the build
+    the ``native_build`` fixture found or made."""
+    lib = os.path.join(native_build, "libct_sut.so")
+    monkeypatch.setattr(NL, "_find_lib", lambda: lib)
+    monkeypatch.setattr(NL, "_LIB", None)
+    monkeypatch.setattr(NL, "_LIB_TRIED", False)
+    assert NL.native_available()
 
 
 def _fields(ops):

@@ -48,6 +48,7 @@ from comdb2_tpu_torch.workloads.tcp import (ClusterControl,
                                             TcpClusterRegisterClient)
 
 import torch_cluster_parity as CP
+from torch_cluster_parity import native_build  # noqa: F401 (fixture)
 import torch_harness_parity as P
 
 _one_thread = pytest.fixture(autouse=True, scope="module")(

@@ -45,6 +45,7 @@ from comdb2_tpu_torch.workloads import comdb2 as TW
 from comdb2_tpu_torch.workloads import tcp as TT
 
 import torch_cluster_parity as CP
+from torch_cluster_parity import native_build  # noqa: F401 (fixture)
 import torch_harness_parity as P
 
 _one_thread = pytest.fixture(autouse=True, scope="module")(

@@ -12,26 +12,96 @@ ports.
 """
 
 import contextlib
+import fcntl
 import os
+import shutil
 import socket
+import subprocess
 import threading
 import time
 
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILD = os.path.join(ROOT, "native", "build")
+NATIVE = os.path.join(ROOT, "native")
+#: the native targets the port's tests run or load
+TARGETS = ("sut_node", "sut_server", "ct_register", "ct_sql",
+           "libct_sut.so")
+#: the port's own build tree (git-ignored): never the tree that
+#: ``tests/test_native.py`` builds while other workers run
+OWN_BUILD = os.path.join(ROOT, "comdb2_tpu_torch", "_build", "native")
+#: a ``native/build`` younger than this may still be linking
+SETTLED_S = 60.0
+
+# the binaries' paths; the ``native_build`` fixture points them at the
+# build it found or made before any test that needs them runs
+BUILD = os.path.join(NATIVE, "build")
 SUT_NODE = os.path.join(BUILD, "sut_node")
 SUT_SERVER = os.path.join(BUILD, "sut_server")
 CT_REGISTER = os.path.join(BUILD, "ct_register")
 CT_SQL = os.path.join(BUILD, "ct_sql")
 
-#: the mark of a test that runs ``sut_node`` (built with cmake into
-#: ``native/build``; the JAX package's cluster tests skip the same way)
-needs_sut_node = pytest.mark.skipif(
-    not os.path.exists(SUT_NODE), reason="sut_node not built")
-needs_sut_server = pytest.mark.skipif(
-    not os.path.exists(SUT_SERVER), reason="sut_server not built")
+_BUILT = None
+
+
+def _settled(build: str) -> bool:
+    """``build`` holds every target, none of them written in the last
+    :data:`SETTLED_S` seconds (a build still in progress may have some
+    half-linked)."""
+    paths = [os.path.join(build, t) for t in TARGETS]
+    if not all(os.path.exists(p) for p in paths):
+        return False
+    return time.time() - max(os.path.getmtime(p) for p in paths) \
+        > SETTLED_S
+
+
+def build_native() -> str:
+    """The directory holding the native targets: ``native/build`` when
+    it holds them all, settled; else the port's own tree, built once
+    with cmake under a file lock (xdist workers wait for one build)."""
+    global _BUILT
+    if _BUILT is None:
+        if _settled(os.path.join(NATIVE, "build")):
+            _BUILT = os.path.join(NATIVE, "build")
+        else:
+            os.makedirs(OWN_BUILD, exist_ok=True)
+            with open(OWN_BUILD + ".lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                try:
+                    subprocess.run(["cmake", "-S", NATIVE, "-B",
+                                    OWN_BUILD], check=True,
+                                   capture_output=True, timeout=300)
+                    subprocess.run(["cmake", "--build", OWN_BUILD, "-j",
+                                    "4"], check=True,
+                                   capture_output=True, timeout=600)
+                finally:
+                    fcntl.flock(lock, fcntl.LOCK_UN)
+            _BUILT = OWN_BUILD
+    return _BUILT
+
+
+@pytest.fixture(scope="session")
+def native_build():
+    """The native targets, built at first use (see
+    :func:`build_native`); skips only when cmake or a C++ compiler is
+    missing. Points this module's binary paths at the build."""
+    global BUILD, SUT_NODE, SUT_SERVER, CT_REGISTER, CT_SQL
+    if shutil.which("cmake") is None or not (
+            shutil.which("c++") or shutil.which("g++")):
+        pytest.skip("cmake or a C++ compiler is missing")
+    BUILD = build_native()
+    SUT_NODE = os.path.join(BUILD, "sut_node")
+    SUT_SERVER = os.path.join(BUILD, "sut_server")
+    CT_REGISTER = os.path.join(BUILD, "ct_register")
+    CT_SQL = os.path.join(BUILD, "ct_sql")
+    return BUILD
+
+
+#: the mark of a test that runs ``sut_node`` / ``sut_server``: the
+#: binaries are built at first use (the module must import the
+#: ``native_build`` fixture)
+needs_sut_node = pytest.mark.usefixtures("native_build")
+needs_sut_server = pytest.mark.usefixtures("native_build")
 
 
 def free_ports(n):
