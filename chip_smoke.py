@@ -269,6 +269,36 @@ held bit-equal to ``seg_search_reference`` and every pair sort to
 caught; (an4) ``scripts/torch_fuzz_seg.py --device cuda`` at 8 seeds
 per family, the kernel against seg2 with no mismatch.
 
+The elastic fleet and the port's gate, counted as an eleventh path
+(``fleet``):
+
+- (gt) ``scripts/check_torch.sh --json --device cuda`` in a child
+  process started before path 9 and joined at the script's end:
+  every stage ``ok`` (the port's static analysis, the txn / shrink /
+  workload-family / MXU smokes, the mesh at D = 1, the daemon's
+  service, stream, routing, elastic and tracing smokes, each daemon on
+  the card);
+- (el) ``scripts/torch_elastic.py``'s ``run`` on the card: the
+  supervisor keeps two ``--backend cuda --frontier 1024`` daemons under
+  ``ct_pmux``; a burst of its size classes, 32 of (i)'s keys and one of
+  (h)'s overflowing 8-process lanes; one daemon SIGKILLed a third of the
+  way in (the survivor serves its classes, the corpse is reaped, its
+  registration deleted, the epoch bumped, the floor refilled); a third
+  daemon joins under a second burst (about 1/3 of 512 probe keys remap,
+  all onto it); a session on the kernel rung, one more of (i)'s keys in
+  two appends, moves by checkpoint off a draining daemon with 0 replays;
+  the client-observed fleet history checked VALID by the fleet. Every
+  reply equal to the in-process ``check_batch`` on the card; each
+  daemon's launches and card time read from its ``metrics`` verb; the
+  stream kernel, the carry mode and the pair sort launched in the fleet;
+  no daemon, zombie or compute app of a daemon left. The daemons' stderr
+  files go to ``chiprun_out/fleet_daemons/``;
+- (mz) ``scripts/torch_fuzz_mxu.py``'s ``run`` at 6 seeds per family
+  on the card, in a thread beside (el): PASS, both verdict classes in each family, no UNKNOWN in
+  the wave families, the kernel cross-checked on register seeds, and
+  every segment-search launch it made held bit-equal to
+  ``seg_search_reference``.
+
 In the single-history path, (e3) is (e) again with ``filetest --trace``:
 the span totals per stage (parse, pack, device with segments / kernel /
 decode inside, finalize) and the parser that ran — the C++ loader when
@@ -4573,6 +4603,272 @@ def _analysis_path(zero_counts, counts):
     return rec, launches
 
 
+
+# --- path 11: the elastic fleet and the gate on the card ---------------------
+
+FLEET_PER_CLASS = 2       # (el): requests per size class of torch_elastic
+FLEET_I_KEYS = 32         # (el): (i)'s keys in the first burst
+FLEET_I_JOIN = 16         # (el): (i)'s keys in the join's burst
+FLEET_F = 1024            # (el): the daemons' frontier (the (h) lane's keys rung)
+MXU_FUZZ_SEEDS = 6        # (mz): seeds per family
+
+
+def _fleet_scripts():
+    """The port's fleet scripts under ``scripts/``: ``(torch_elastic,
+    torch_fleet, torch_fuzz_mxu)``."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_elastic
+    import torch_fleet
+    import torch_fuzz_mxu
+
+    return torch_elastic, torch_fleet, torch_fuzz_mxu
+
+
+class _DeferredGate:
+    """(gt): ``scripts/check_torch.sh --json --device cuda`` in a child
+    process (its own session, so it dies whole with the script) that
+    overlaps the rest of the script; :meth:`finish` waits for it and
+    reads one JSON line per stage. Its stderr goes to
+    ``chiprun_out/check_torch.err``."""
+
+    def __init__(self):
+        import atexit
+
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        self.err = os.path.join(HERE, "chiprun_out", "check_torch.err")
+        with open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                ["bash", os.path.join(HERE, "scripts", "check_torch.sh"),
+                 "--json", "--device", "cuda"], cwd=HERE,
+                stdout=subprocess.PIPE, stderr=err, text=True,
+                start_new_session=True)
+        self.t0 = time.perf_counter()
+        atexit.register(self.kill)
+
+    def kill(self):
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def finish(self, rec, timeout_s=900.0):
+        try:
+            out, _ = self.proc.communicate(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise _Failed(f"(gt) check_torch.sh took more than {timeout_s} s")
+        stages = [json.loads(ln) for ln in out.splitlines() if ln.strip()]
+        rec["gt"] = {"rc": self.proc.returncode, "stages": stages,
+                     "waited_s": time.perf_counter() - self.t0}
+        with open(self.err) as fh:
+            tail = fh.read()[-3000:]
+        print("  gt check_torch.sh --json --device cuda: exit "
+              f"{self.proc.returncode}, "
+              + ", ".join(f"{st['stage']} {'ok' if st['ok'] else 'FAILED'} "
+                          f"{st['secs']} s" for st in stages)
+              + f"; {rec['gt']['waited_s']:.1f} s after its start")
+        want = ["analysis", "txn-smoke", "shrink-smoke", "wl", "mxu-smoke",
+                "multichip", "service-smoke", "stream", "routing",
+                "elastic", "obs"]
+        _expect(self.proc.returncode == 0
+                and [st["stage"] for st in stages] == want
+                and all(st["ok"] for st in stages),
+                f"(gt) the gate failed: {stages}; its stderr ends:\n{tail}")
+
+
+def _fleet_references(dev):
+    """(el)'s traffic and the in-process ``check_batch`` on the card that
+    every fleet reply is held to, made before the path's counted run:
+    the first burst is torch_elastic's size classes, FLEET_I_KEYS of
+    (i)'s keys and one of (h)'s overflowing 8-process lanes; the join's
+    burst the size classes again and FLEET_I_JOIN more keys; the
+    migrated session one more key."""
+    from comdb2_tpu_torch.checker import batch as TB
+    from comdb2_tpu_torch.models.model import cas_register
+
+    EL, _, _ = _fleet_scripts()
+    per, _ = _i_histories()
+    burst = EL.class_histories(FLEET_PER_CLASS, 9000, 37) \
+        + per[:FLEET_I_KEYS]
+    burst.insert(len(burst) // 2, EL.overflow_history())
+    join = EL.class_histories(FLEET_PER_CLASS, 5000, 31) \
+        + per[FLEET_I_KEYS:FLEET_I_KEYS + FLEET_I_JOIN]
+    hs = burst + join
+    want = TB.check_batch(TB.pack_batch(hs, cas_register()), F=FLEET_F,
+                          device=dev)
+    return {"burst": burst, "join": join,
+            "stream": per[FLEET_I_KEYS + FLEET_I_JOIN],
+            "want": {id(h): (int(want[0][i]), int(want[1][i]),
+                             int(want[2][i])) for i, h in enumerate(hs)}}
+
+
+def _fleet_el(ref, rec):
+    """(el): torch_elastic's three scenarios with the daemons on the
+    card, at ``--frontier`` FLEET_F, on ``ref``'s traffic; every reply
+    held to the in-process ``check_batch``. Returns the fleet's kernel
+    launches, read from each daemon's ``metrics`` verb."""
+    from comdb2_tpu_torch.service import protocol
+
+    EL, _, _ = _fleet_scripts()
+    log_dir = os.path.join(HERE, "chiprun_out", "fleet_daemons")
+    t0 = time.perf_counter()
+    try:
+        out = EL.run("cuda", FLEET_PER_CLASS, log_dir=log_dir,
+                     frontier=FLEET_F, burst=ref["burst"],
+                     join_burst=ref["join"], stream_history=ref["stream"],
+                     keep_replies=True)
+    except BaseException:
+        from comdb2_tpu_torch.service.supervisor import stderr_tail
+
+        for name in sorted(os.listdir(log_dir) if os.path.isdir(log_dir)
+                           else []):
+            print(f"  el {name}"
+                  f"{stderr_tail(os.path.join(log_dir, name))}")
+        raise
+    wall = time.perf_counter() - t0
+    replies = out.pop("replies")
+    bad = []
+    for i, (h, r) in sorted(replies.items()):
+        st, fa, nf = ref["want"][id(h)]
+        if not (r.get("ok") and r.get("valid") == protocol.verdict(st)
+                and r.get("op_index") == fa
+                and (st != 0 or r.get("final_count") == nf)):
+            bad.append((i, st, fa, nf, {k: r.get(k) for k in (
+                "ok", "valid", "op_index", "final_count", "error")}))
+    n_inv = sum(r.get("valid") is False for _, r in replies.values())
+    rec["el"] = dict(out, wall_s=wall, replies_held=len(replies),
+                     mismatched=bad, invalid_replies=n_inv)
+    k, j, m, sc = out["kill"], out["join"], out["stream"], out["self_check"]
+    print(f"  el kill: {k['requests']} requests, SIGKILL of {k['victim']} "
+          f"(exit {k['victim_exit']}) at request {k['killed_at_request']}; "
+          f"{k['failovers']} failovers, {k['ring_refreshes']} ring "
+          f"refreshes, {k['stale_cleanups']} stale registration deleted, "
+          f"{k['deaths_reaped']} corpse reaped, the floor refilled "
+          f"{k['respawned_to_floor']}; {k['survivor']} served "
+          f"{k['survivor_served_after_kill']} after the kill")
+    print(f"  el join: {j['service']}, epoch {j['epoch_before']} -> "
+          f"{j['epoch_after']}, {j['remapped_fraction']:.4f} of 512 probe "
+          f"keys remapped, all onto it {j['moved_only_to_newcomer']}, it "
+          f"served {j['newcomer_served']}")
+    print(f"  el migration: {m['pinned']} drained, the session moved to "
+          f"{m['migrated_to']} ({m['migrations']} move), rung "
+          f"{m['engine_before']} -> {m['engine_after']}, "
+          f"{m['replays_after_handoff']} replays, dispatches "
+          f"{m['dispatches_first_half']} then {m['dispatches_total']}, "
+          f"final {m['final_valid']}")
+    print(f"  el self-check: {sc['requests']} requests answered exactly "
+          f"once {sc['answered_exactly_once']}, the fleet history "
+          f"({sc['fleet_history_ops']} ops) {sc['fleet_history_valid']} "
+          f"through {sc['checker_engine']}; {len(replies)} replies "
+          f"({n_inv} INVALID) "
+          f"{'all equal' if not bad else f'{len(bad)} differ from'} the "
+          f"in-process check_batch at F = {FLEET_F}")
+    for svc, d in sorted(out["daemons"].items()):
+        print(f"  el {svc}: {d.get('completed', 0)} requests completed; "
+              f"launches seg_search {d.get('seg_search', 0)}, "
+              f"seg_search[stream] {d.get('seg_search_stream', 0)}, "
+              f"pair_sort {d.get('pair_sort', 0)}; card "
+              f"{d.get('card_s', 0.0) * 1e3:.3f} ms (its metrics verb)")
+    w = out["walls_s"]
+    print("  el walls (s): " + ", ".join(f"{k_} {v:.2f}"
+                                         for k_, v in w.items())
+          + f"; all {wall:.1f}")
+    print(f"  el leftovers: {out['leftovers']}")
+    _expect(not bad, f"(el) fleet replies differ from check_batch: "
+                     f"{bad[:4]}")
+    _expect(out["gate_ok"], f"(el) the elastic gate failed: "
+                            f"{ {k_: out[k_] for k_ in ('kill', 'join', 'stream', 'self_check', 'leftovers', 'fleet_launches')} }")
+    return out["fleet_launches"]
+
+
+def _fleet_mz(rec, counts):
+    """(mz): torch_fuzz_mxu on the card, every segment-search launch it
+    makes in process held to ``seg_search_reference``."""
+    _, _, FZ = _fleet_scripts()
+    log = _LaunchLog()
+    log.run = "mz"
+    log.install()
+    t0 = time.perf_counter()
+    try:
+        art = FZ.run(MXU_FUZZ_SEEDS, "cuda")
+    finally:
+        log.uninstall()
+    wall = time.perf_counter() - t0
+    here = counts()                 # (el) launches in its daemons only
+    err, held, plain_ms = _hold_launches(log, "path 11 (mz)")
+    fams = art["families"]
+    rec["mz"] = {"wall_s": wall, "families": fams, "device": art["device"],
+                 "verdict": art["verdict"], "launches": here,
+                 "hold": {"launches": len(log.launches), "max_abs_err": err,
+                          "plain_ms": plain_ms}}
+    print(f"  mz torch_fuzz_mxu at {MXU_FUZZ_SEEDS} seeds per family on "
+          f"{art['device']}: {art['verdict']}; " + "; ".join(
+              f"{f} {c}" for f, c in fams.items())
+          + f"; {wall:.2f} s; its {len(log.launches)} segment-search "
+          f"launches bit-equal to seg_search_reference ({plain_ms:.1f} ms "
+          "plain)")
+    _expect(art["verdict"] == "PASS"
+            and fams["register"].get("kernel-crosschecked", 0) > 0
+            and all(fams[f].get("ok") and fams[f].get("inv") for f in fams)
+            and not fams["waves-p16"].get("unk")
+            and not fams["waves-p24"].get("unk"),
+            f"(mz) the MXU fuzz fell short: {fams}")
+    return err
+
+
+def _start_gate():
+    """(gt), started before path 9 so that it overlaps paths 9-11 and
+    the script's tail: ``ct_pmux`` is built first (once, for the gate
+    and (el) alike)."""
+    _, FL, _ = _fleet_scripts()
+    FL.find_ct_pmux()
+    return _DeferredGate()
+
+
+def _fleet_path(dev, zero_counts, counts):
+    """Path 11: (el) the elastic fleet on the card, with (mz) the MXU
+    fuzz in a thread beside it ((el)'s process only waits on its
+    daemons; (gt) runs in its child process since path 9). Returns
+    ``(rec, launches)``: the path's counts are this process's ((mz))
+    plus the fleet's daemons' ((el), scraped)."""
+    import threading
+
+    t0 = time.perf_counter()
+    ref = _fleet_references(dev)
+    print(f"  (direct calls for the comparisons: "
+          f"{time.perf_counter() - t0:.1f} s)")
+    rec: dict = {}
+    zero_counts()
+    t_path = time.perf_counter()
+    mz: dict = {}
+
+    def fuzz():
+        try:
+            mz["err"] = _fleet_mz(rec, counts)
+        except BaseException as e:          # noqa: BLE001
+            mz["raised"] = e
+
+    thread = threading.Thread(target=fuzz)
+    thread.start()
+    try:
+        fleet = _fleet_el(ref, rec)
+    finally:
+        thread.join()
+    if "raised" in mz:
+        raise mz["raised"]
+    err = mz["err"]
+    launches = counts()
+    for name, key in (("seg_search", "seg_search"),
+                      ("seg_search[stream]", "seg_search_stream"),
+                      ("pair_sort", "pair_sort")):
+        launches[name] += int(fleet.get(key, 0))
+    rec["launches"] = {"fleet": fleet, "this_process": rec["mz"]["launches"]}
+    rec["hold"] = rec["mz"]["hold"]
+    rec["max_abs_err"] = err
+    rec["wall_s"] = time.perf_counter() - t_path
+    return rec, launches
+
 def main() -> int:
     try:
         import torch
@@ -5062,6 +5358,12 @@ def main() -> int:
         return _fail(f"the service path launched a kernel no time: "
                      f"{path_counts['service']}")
 
+    # (gt) the port's gate, in a child process from here to the end
+    try:
+        gate_pending = _start_gate()
+    except (OSError, subprocess.CalledProcessError, SystemExit) as e:
+        return _fail(f"(gt) could not start: {e}")
+
     # --- path 9: the TCP cluster, counted ---------------------------------
     print("cluster: the TCP cluster half of the harness on the card — (c1) "
           "register-test-nemesis over five sut_node nodes, (c2) the -B "
@@ -5100,6 +5402,26 @@ def main() -> int:
         return _fail(f"the static-analysis path launched a kernel no "
                      f"time: {path_counts['static analysis']}")
 
+    # --- path 11: the elastic fleet and the gate, counted -----------------
+    print("fleet: (el) the elastic fleet on the card (SIGKILL nemesis, a "
+          "join, a migration) with (mz) the MXU fuzz beside it; (gt) "
+          "check_torch.sh --device cuda in the background since path 9")
+    t0 = time.perf_counter()
+    try:
+        fleet_rec, path_counts["fleet"] = _fleet_path(
+            dev, zero_counts, counts)
+    except (_Failed, AssertionError) as e:
+        return _fail(f"path 11: {e}")
+    print(f"LAUNCHES (fleet path, this process and the daemons): "
+          f"{path_counts['fleet']}")
+    print(f"  (path 11 took {time.perf_counter() - t0:.1f} s; (gt) runs "
+          f"on beside the rest)")
+    if not (path_counts["fleet"]["seg_search"] > 0
+            and path_counts["fleet"]["seg_search[stream]"] > 0
+            and path_counts["fleet"]["pair_sort"] > 0):
+        return _fail(f"the fleet path launched a kernel no time: "
+                     f"{path_counts['fleet']}")
+
     # --- kernel vs plain version on the card ------------------------------
     print(f"parity: kernel vs seg_search_reference, windows of {WINDOW} "
           "segments (head from the initial carry; tail ending at the "
@@ -5124,7 +5446,8 @@ def main() -> int:
         return _fail(str(e))
     del stream_cap
     max_err = max(max_err, err_v9, harness_rec["hold"]["max_abs_err"],
-                  cluster_rec["hold"]["max_abs_err"])
+                  cluster_rec["hold"]["max_abs_err"],
+                  fleet_rec["hold"]["max_abs_err"])
     stream_rec["v9"] = {"launches": n_v9, "v1_launches": STREAM_PARITY,
                         "plain_ms": plain_v9, "max_abs_err": err_v9}
     print(f"  v9: {n_v9} stream-path launches (the first {STREAM_PARITY} "
@@ -5153,7 +5476,9 @@ def main() -> int:
         "harness_path": {"parity_launches": harness_rec["hold"]["launches"],
                          "plain_ms": harness_rec["hold"]["plain_ms"]},
         "cluster_path": {"parity_launches": cluster_rec["hold"]["launches"],
-                         "plain_ms": cluster_rec["hold"]["plain_ms"]}}]
+                         "plain_ms": cluster_rec["hold"]["plain_ms"]},
+        "fleet_path": {"parity_launches": fleet_rec["hold"]["launches"],
+                       "plain_ms": fleet_rec["hold"]["plain_ms"]}}]
 
     # stream mode, at the main path's own launch shapes: (h)'s whole
     # launch, two of (g)'s group streams together at (g)'s layout, and
@@ -5514,6 +5839,7 @@ def main() -> int:
     try:
         harness_pending.finish()
         cluster_pending.finish()
+        gate_pending.finish(fleet_rec)
     except _Failed as e:
         return _fail(str(e))
     for e in entries:
@@ -5527,7 +5853,7 @@ def main() -> int:
                    "last_batch_engines": escal_rec, "shrink": shrink_rec,
                    "stream": stream_rec, "service": service_rec,
                    "harness": harness_rec, "cluster": cluster_rec,
-                   "static_analysis": analysis_rec,
+                   "static_analysis": analysis_rec, "fleet": fleet_rec,
                    "launches_by_path": path_counts,
                    "kernels": entries, "work": work, "bytes": nbytes,
                    "wall_s": time.perf_counter() - t_start}, fh, indent=1,

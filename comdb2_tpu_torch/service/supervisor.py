@@ -74,6 +74,22 @@ def desired_count(n: int, depth_ewma: float, drain_rate_ewma: float,
     return n
 
 
+def stderr_tail(path: Optional[str], n_bytes: int = 4000) -> str:
+    """The last ``n_bytes`` of a child's standard-error file, as a
+    suffix for a report (empty without a file)."""
+    if path is None:
+        return ""
+    try:
+        with open(path, "rb") as fh:
+            fh.seek(0, os.SEEK_END)
+            fh.seek(max(fh.tell() - n_bytes, 0))
+            tail = fh.read().decode("utf-8", "replace").strip()
+    except OSError as e:
+        return f"; its stderr ({path}) is unreadable: {e}"
+    return f"; its stderr ({path}):\n{tail}" if tail else \
+        f"; its stderr ({path}) is empty"
+
+
 def _client(port: int, timeout_s: float = 5.0):
     """One-shot daemon client (retries=0: the beat handles dead
     children itself — reuse the ONE wire implementation instead of a
@@ -93,6 +109,7 @@ class Child:
     t_spawn: float
     last_completed: int = 0
     stats: dict = field(default_factory=dict)
+    stderr_path: Optional[str] = None
 
 
 class Supervisor:
@@ -110,7 +127,8 @@ class Supervisor:
                  max_sessions: int = 64,
                  ewma_alpha: float = 0.3,
                  spawn_timeout_s: float = 180.0,
-                 prefix: str = PMUX_SERVICE):
+                 prefix: str = PMUX_SERVICE,
+                 stderr_dir: Optional[str] = None):
         self.pmux_port = pmux_port
         self.min_daemons = int(min_daemons)
         self.max_daemons = int(max_daemons)
@@ -128,6 +146,11 @@ class Supervisor:
         #: single-threaded beat, so nothing gets reaped or refilled
         self.spawn_timeout_s = float(spawn_timeout_s)
         self.prefix = prefix
+        #: where each child's standard error goes, one file per spawn
+        #: (``daemon-<shard>.err``); a child that dies, before or after
+        #: its ready line, is reported with the file's tail. None
+        #: discards it
+        self.stderr_dir = stderr_dir
         self.children: Dict[int, Child] = {}
         self._next_shard = 0
         self._stop = False
@@ -156,16 +179,28 @@ class Supervisor:
         if self.pmux_port is not None:
             cmd += ["--pmux", str(self.pmux_port),
                     "--pmux-shard", str(shard)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
-            text=True, env=dict(os.environ))
+        err_path = None
+        err = subprocess.DEVNULL
+        if self.stderr_dir is not None:
+            os.makedirs(self.stderr_dir, exist_ok=True)
+            err_path = os.path.join(self.stderr_dir,
+                                    f"daemon-{shard}.err")
+            err = open(err_path, "wb")
+        try:
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=err, text=True,
+                env=dict(os.environ))
+        finally:
+            if err_path is not None:
+                err.close()
         ready_fds, _, _ = select.select([proc.stdout], [], [],
                                         self.spawn_timeout_s)
         if not ready_fds:
             proc.kill()
             proc.wait(timeout=30)
             raise OSError(f"daemon {shard} produced no ready line "
-                          f"within {self.spawn_timeout_s:.0f}s")
+                          f"within {self.spawn_timeout_s:.0f}s"
+                          + stderr_tail(err_path))
         line = proc.stdout.readline()
         try:
             ready = json.loads(line)
@@ -173,13 +208,15 @@ class Supervisor:
             proc.kill()
             proc.wait(timeout=30)
             raise OSError(f"daemon {shard} never became ready: "
-                          f"{line!r}")
+                          f"{line!r}" + stderr_tail(err_path))
         if not ready.get("ready"):
             proc.kill()
             proc.wait(timeout=30)
-            raise OSError(f"daemon {shard} not ready: {ready}")
+            raise OSError(f"daemon {shard} not ready: {ready}"
+                          + stderr_tail(err_path))
         child = Child(shard=shard, proc=proc, port=ready["port"],
-                      service=service, t_spawn=_monotonic())
+                      service=service, t_spawn=_monotonic(),
+                      stderr_path=err_path)
         self.children[shard] = child
         self.spawned += 1
         logger.info("spawned %s on port %d (pid %d)", service,
@@ -211,8 +248,9 @@ class Supervisor:
                 child.proc.wait(timeout=30)
         self.retired += 1
         if child.proc.returncode not in (0, -signal.SIGKILL):
-            logger.warning("%s exited %s", child.service,
-                           child.proc.returncode)
+            logger.warning("%s exited %s%s", child.service,
+                           child.proc.returncode,
+                           stderr_tail(child.stderr_path))
 
     def shutdown(self) -> None:
         """Retire everything (largest shard first) and reap."""
@@ -231,8 +269,9 @@ class Supervisor:
                 continue
             self.children.pop(shard)
             self.deaths += 1
-            logger.warning("%s died (exit %s)", child.service,
-                           child.proc.returncode)
+            logger.warning("%s died (exit %s)%s", child.service,
+                           child.proc.returncode,
+                           stderr_tail(child.stderr_path))
             self._cleanup_stale(child.service)
         while len(self.children) < self.min_daemons and not self._stop:
             try:
@@ -390,6 +429,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="per-daemon session cap (the session-pressure "
                         "term of the policy; pass the same value to "
                         "the daemons after --)")
+    p.add_argument("--stderr-dir", default=None, metavar="DIR",
+                   help="write each daemon's stderr to "
+                        "DIR/daemon-<shard>.err and report its tail "
+                        "when the daemon dies (default: discarded)")
     argv = list(sys.argv[1:] if argv is None else argv)
     daemon_args: List[str] = []
     if "--" in argv:
@@ -404,7 +447,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                      drain_grace_s=args.drain_s,
                      up_backlog_s=args.up_backlog_s,
                      down_backlog_s=args.down_backlog_s,
-                     max_sessions=args.max_sessions)
+                     max_sessions=args.max_sessions,
+                     stderr_dir=args.stderr_dir)
     signal.signal(signal.SIGTERM, sup.stop)
     signal.signal(signal.SIGINT, sup.stop)
     return sup.run(initial=args.n)
@@ -414,4 +458,4 @@ if __name__ == "__main__":
     sys.exit(main())
 
 
-__all__ = ["Child", "Supervisor", "desired_count", "main"]
+__all__ = ["Child", "Supervisor", "desired_count", "main", "stderr_tail"]

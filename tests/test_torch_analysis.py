@@ -105,6 +105,7 @@ def test_markers_are_exactly_the_decided_findings(repo_cli):
          "comdb2_tpu_torch/checker/linear_torch.py"),
         ("unbucketed-dispatch-site",
          "comdb2_tpu_torch/checker/batch.py"),
+        ("wait-after-kill", "scripts/torch_elastic.py"),
     ], got
 
 

@@ -242,3 +242,47 @@ def test_package_exports_equal_the_references(pkg):
     want = importlib.import_module(f"comdb2_tpu.{pkg}").__all__
     extra = {"control": {"PmuxClient", "resolve_layout"}}.get(pkg, set())
     assert set(got) - extra == set(want)
+
+
+def _gate_python_files():
+    """Every Python file ``scripts/check_torch.sh`` runs: the scripts it
+    names, the modules it runs with ``-m`` and the scripts those name."""
+    import re
+
+    text = (ROOT / "scripts" / "check_torch.sh").read_text()
+    files = {ROOT / p for p in re.findall(r"(scripts/[\w.]+\.py)", text)}
+    for mod in re.findall(r"python -m ([\w.]+)", text):
+        path = ROOT / mod.replace(".", "/")
+        files.add(path / "__main__.py" if path.is_dir()
+                  else path.with_suffix(".py"))
+    return files
+
+
+def test_scripts_and_gate_files_import_no_jax():
+    """The port's scripts (``scripts/torch_*.py``) and every Python file
+    the port's gate runs import neither ``jax`` nor the JAX package, and
+    the gate keeps no Python in heredocs, where no scan would see it."""
+    gate = (ROOT / "scripts" / "check_torch.sh").read_text()
+    assert "<<" not in gate
+    files = set((ROOT / "scripts").glob("torch_*.py")) | _gate_python_files()
+    names = {p.name for p in files}
+    for want in ("torch_gate.py", "torch_elastic.py", "torch_fleet.py",
+                 "torch_fuzz_mxu.py", "torch_killclustertest.py",
+                 "__main__.py"):
+        assert want in names, want
+    found = []
+    for path in sorted(files):
+        assert path.exists(), path
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            found += [(path.name, m) for m in mods if _forbidden(m)]
+    assert found == []
+    hook = (ROOT / "scripts" / "pre-commit-torch").read_text()
+    assert "comdb2_tpu_torch.analysis --changed HEAD" in hook
+    assert "comdb2_tpu.analysis" not in hook
