@@ -30,6 +30,7 @@ from typing import List, Optional, Set
 import numpy as np
 
 from ..models.memo import MemoizedModel
+from ..obs import trace as _obs
 from ..ops.packed import PackedHistory
 from ..utils import next_pow2 as _next_pow2
 from . import linear_host
@@ -101,31 +102,32 @@ def reconstruct(mm: MemoizedModel, packed: PackedHistory,
         k_pad=_next_pow2(segs.inv_proc.shape[1], 2))
     segs, P_eff, owners = LT.remap_slots(segs, with_maps=True)
     sizes = {"n_states": mm.n_states, "n_transitions": mm.n_transitions}
-    boundary = _kernel_boundary(mm, segs, kernel_slots(P_eff), sizes,
-                                device)
-    if boundary is not None:
-        raw_cfgs, done, fail_seg = boundary
-    else:
-        Pe = max(P_eff, 1)
-        boundary = _seg2_boundary(mm, segs, max(Pe + (Pe & 1), 2), Pe,
-                                  sizes, F, device)
+    with _obs.span("counterexample.rescan"):
+        boundary = _kernel_boundary(mm, segs, kernel_slots(P_eff), sizes,
+                                    device)
         if boundary is None:
-            return None
-        raw_cfgs, done, fail_seg = boundary
+            Pe = max(P_eff, 1)
+            boundary = _seg2_boundary(mm, segs, max(Pe + (Pe & 1), 2), Pe,
+                                      sizes, F, device)
+    if boundary is None:
+        return None
+    raw_cfgs, done, fail_seg = boundary
     boundary_cfgs = _unmap_configs(
         raw_cfgs, owners[done - 1] if done > 0 else (), P)
 
     # host replay: from the history row after the boundary's last ok
     start_index = (int(segs.seg_index[done - 1]) + 1) if done > 0 else 0
-    r = linear_host.check(mm, packed, max_configs=max_host_configs,
-                          start_index=start_index,
-                          init_configs=boundary_cfgs)
+    with _obs.span("counterexample.replay"):
+        r = linear_host.check(mm, packed, max_configs=max_host_configs,
+                              start_index=start_index,
+                              init_configs=boundary_cfgs)
     if r.valid or r.op_index is None:
         return None                           # replay didn't reproduce
     cfgs = [linear_host.describe_config(mm, packed, c)
             for c in r.configs[:10]]
-    paths = final_paths(mm, packed, r.pre_configs, r.op_index,
-                        max_paths=max_paths)
+    with _obs.span("counterexample.paths"):
+        paths = final_paths(mm, packed, r.pre_configs, r.op_index,
+                            max_paths=max_paths)
     return Counterexample(op_index=r.op_index, configs=cfgs,
                           paths=paths, raw_configs=r.configs[:10],
                           replayed_segments=max(fail_seg - done + 1, 0))

@@ -87,18 +87,19 @@ def analysis(model: Model,
     """
     dev = resolve_device(device)
     t0 = _obs.monotonic()
-    packed = (history if isinstance(history, PackedHistory)
-              else pack_history(list(history)))
-    n = len(packed)
-    P = len(packed.process_table)
-    if n == 0 or P == 0:
-        return Analysis(valid=True, info={"backend": "trivial"})
+    with _obs.span("linear.pack") as sp:
+        packed = (history if isinstance(history, PackedHistory)
+                  else pack_history(list(history)))
+        n = len(packed)
+        P = len(packed.process_table)
+        sp.set(n=n, P=P)
+        if n == 0 or P == 0:
+            return Analysis(valid=True, info={"backend": "trivial"})
 
-    try:
-        mm = make_memo(model, packed, max_states=max_states)
-    except MemoOverflow as e:
-        return Analysis(valid=UNKNOWN, info={"cause": str(e)})
-    _obs.record("linear.pack", t0, _obs.monotonic(), n=n, P=P)
+        try:
+            mm = make_memo(model, packed, max_states=max_states)
+        except MemoOverflow as e:
+            return Analysis(valid=UNKNOWN, info={"cause": str(e)})
 
     if backend == "host" or (backend == "auto" and n < host_threshold):
         return _analyze_host(mm, packed, max_host_configs, t0)
@@ -406,7 +407,8 @@ def _device_verdict(mm, packed, segs, status, fail_seg, n_final,
     # host replay of at most one chunk from the boundary frontier, then
     # concrete failed linearization orders
     op_index = fail_at
-    op = packed.ops[op_index]
+    with _obs.span("linear.decode.ops"):
+        op = packed.ops[op_index]
     cfgs: List[dict] = []
     try:
         from . import counterexample as CE

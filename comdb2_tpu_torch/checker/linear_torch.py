@@ -42,6 +42,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..obs import trace as _obs
+
 IDLE = -1
 LIN = -2
 
@@ -229,6 +231,7 @@ class SegmentStream(NamedTuple):
     depth: np.ndarray      # int32[S]
 
 
+@_obs.traced("segments.make")
 def make_segments(packed, s_pad: Optional[int] = None,
                   k_pad: Optional[int] = None) -> SegmentStream:
     """Compress a history into per-ok segments.
@@ -301,6 +304,7 @@ def make_segments(packed, s_pad: Optional[int] = None,
     return SegmentStream(inv_proc, inv_tr, ok_proc, seg_index, depth)
 
 
+@_obs.traced("segments.remap")
 def remap_slots(segs: SegmentStream, with_maps: bool = False):
     """Rename process ids in a segment stream to a minimal pool of
     reusable SLOTS. A process occupies a slot only while its call is

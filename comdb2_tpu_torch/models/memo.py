@@ -21,6 +21,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 
 from .model import Model, step
+from ..obs import trace as _obs
 from ..ops.packed import PackedHistory
 
 
@@ -298,6 +299,7 @@ class IncrementalMemo:
         self._log.append((tuple(transitions), self.max_depth))
 
 
+@_obs.traced("memo.build")
 def memo(model: Model, packed: PackedHistory,
          max_states: int = 1 << 20) -> MemoizedModel:
     """Memoize ``model`` over the distinct transitions of ``packed``

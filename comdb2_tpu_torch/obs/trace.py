@@ -16,6 +16,12 @@ the :func:`traced` decorator calls straight through. Enabled spans
 cost two clock reads and a deque append; the instrumented call sites
 are per-dispatch/per-request, never per-op.
 
+While enabled, the collector's pauses are spans too: :func:`enable`
+installs one ``gc.callbacks`` entry, which records each collection as
+``gc.young`` (generations 0 and 1) or ``gc.full`` (generation 2), with
+``generation`` and ``collected`` as args, nested under whatever span
+was open when it ran; :func:`disable` removes it.
+
 :func:`monotonic` is the one clock of the dispatch pipeline: every stage
 duration and the device-time attribution must come off the same
 monotonic timebase or the per-request stage sums stop tiling the
@@ -29,6 +35,7 @@ loadable in Perfetto / ``chrome://tracing`` unmodified.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import os
 import time as _time
@@ -164,17 +171,38 @@ def request(rid):
 # -- lifecycle ---------------------------------------------------------
 
 
+_gc_t0: Optional[float] = None
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """The ``gc.callbacks`` entry: one span per collection. Collections
+    never overlap (the interpreter runs one at a time), so one start
+    time serves every thread."""
+    global _gc_t0
+    if phase == "start":
+        _gc_t0 = monotonic()
+    elif _gc_t0 is not None:
+        gen = info["generation"]
+        record("gc.full" if gen == 2 else "gc.young", _gc_t0, monotonic(),
+               generation=gen, collected=info["collected"])
+        _gc_t0 = None
+
+
 def enable(max_spans: int = DEFAULT_MAX_SPANS) -> None:
     global _ENABLED, _spans, _dropped
     if _spans.maxlen != max_spans:
         _spans = deque(_spans, maxlen=max_spans)
     _dropped = 0
     _ENABLED = True
+    if _on_gc not in gc.callbacks:
+        gc.callbacks.append(_on_gc)
 
 
 def disable() -> None:
     global _ENABLED
     _ENABLED = False
+    if _on_gc in gc.callbacks:
+        gc.callbacks.remove(_on_gc)
 
 
 def enabled() -> bool:

@@ -17,6 +17,7 @@ from typing import Any, Hashable, List, Optional
 
 import numpy as np
 
+from ..obs import trace as _obs
 from .op import Op, TYPE_NAMES
 
 
@@ -88,6 +89,7 @@ def _materialize_ops(p: PackedHistory) -> List[Op]:
     return out
 
 
+@_obs.traced("ops.pack")
 def pack_history(history: List[Op], completed: bool = False) -> PackedHistory:
     """Complete + index a history and pack it into arrays.
 

@@ -8,6 +8,12 @@ against the JAX package's.
 - ``filetest --trace PATH`` writes a trace with the parse, pack,
   device and finalize spans, exits with the same code as without
   ``--trace``, and leaves tracing off.
+- The single-history check's stage spans nest under its check spans
+  (pack and memo under ``linear.pack``, both segment passes and the
+  renaming under ``linear.segments``, the counterexample's stages under
+  ``linear.decode`` of an INVALID history only); the collector's pauses
+  are ``gc.*`` spans while tracing is on, through one callback that
+  ``disable`` takes away again.
 - The store's web browser (``harness/web.py``): the index (with the
   daemon's ``timeline.svg`` and ``trace.json`` links), listings, path
   resolution, zip archives and the HTTP answers equal the JAX
@@ -16,6 +22,8 @@ against the JAX package's.
   same records.
 """
 
+import gc
+import importlib.util
 import json
 import random
 from pathlib import Path
@@ -25,13 +33,27 @@ import pytest
 from comdb2_tpu.obs import trace as jtrace
 
 from comdb2_tpu_torch import filetest
+from comdb2_tpu_torch.checker.linear import analysis
+from comdb2_tpu_torch.models.model import cas_register
 from comdb2_tpu_torch.obs import trace
 from comdb2_tpu_torch.ops.history import history_to_edn
-from comdb2_tpu_torch.ops.synth import mutate, register_history
+from comdb2_tpu_torch.ops.synth import (inject_anomaly, mutate,
+                                        register_history)
 
 
 @pytest.fixture()
-def tracing():
+def collector_paused():
+    """No automatic collection while the test runs, so that no ``gc.*``
+    span lands among spans a test asserts by name and order."""
+    was = gc.isenabled()
+    gc.disable()
+    yield
+    if was:
+        gc.enable()
+
+
+@pytest.fixture()
+def tracing(collector_paused):
     """Both modules enabled and empty; both off and empty afterwards."""
     for t in (trace, jtrace):
         t.clear()
@@ -158,7 +180,8 @@ RUNS = [
 
 @pytest.mark.parametrize("run", RUNS, ids=[f"{r[0]}-{i}" for i, r in
                                            enumerate(RUNS)])
-def test_filetest_trace_writes_the_stage_spans(tmp_path, run):
+def test_filetest_trace_writes_the_stage_spans(tmp_path, run,
+                                               collector_paused):
     kind, path, extra = run
     if path is None:
         path = _register_edn(tmp_path, invalid=kind == "linear-mutated")
@@ -185,6 +208,126 @@ def test_filetest_trace_writes_the_stage_spans(tmp_path, run):
     elif kind == "txn":
         assert "txn.check" in names
     assert doc["otherData"]["dropped_spans"] == 0
+
+
+# --- the single-history check's stage spans and the collector's ----------
+
+
+def _check_history(invalid):
+    h = register_history(random.Random(6), n_procs=4, n_events=400,
+                         values=5, p_info=0.0)
+    return inject_anomaly(h, "stale-read")[0] if invalid else h
+
+
+def _traced_check(history):
+    """The spans of one device-path check on CPU tensors."""
+    trace.clear()
+    trace.enable()
+    try:
+        a = analysis(cas_register(), history, backend="device",
+                     device="cpu")
+    finally:
+        trace.disable()
+    spans = trace.spans()
+    trace.clear()
+    return a, spans
+
+
+@pytest.mark.parametrize("invalid", [False, True], ids=["valid", "mutated"])
+def test_stage_spans_nest_under_the_check_spans(invalid):
+    a, spans = _traced_check(_check_history(invalid))
+    assert a.valid is (not invalid)
+
+    def under(parent):
+        return sorted(s.name for s in spans if s.parent is not None
+                      and s.parent.name == parent
+                      and not s.name.startswith("gc."))
+
+    assert under("linear.pack") == ["memo.build", "ops.pack"]
+    assert under("linear.segments") == ["segments.make", "segments.make",
+                                        "segments.remap"]
+    stages = ["counterexample.paths", "counterexample.replay",
+              "counterexample.rescan", "linear.decode.ops",
+              "segments.make", "segments.make", "segments.remap"]
+    assert under("linear.decode") == (stages if invalid else [])
+    pack, = (s for s in spans if s.name == "linear.pack")
+    assert pack.args == {"n": 406 if invalid else 400,
+                         "P": 6 if invalid else 4}
+    for s in spans:
+        if s.parent is not None:
+            assert s.parent.t0 <= s.t0 <= s.t1 <= s.parent.t1, s.name
+
+
+def test_enable_installs_one_collector_callback():
+    before = list(gc.callbacks)
+    try:
+        trace.enable()
+        trace.enable()
+        assert len([c for c in gc.callbacks if c not in before]) == 1
+        assert len(gc.callbacks) == len(before) + 1
+    finally:
+        trace.disable()
+        trace.clear()
+    assert gc.callbacks == before
+    trace.disable()
+    assert gc.callbacks == before
+
+
+def test_a_collection_while_enabled_is_one_full_span(collector_paused):
+    trace.clear()
+    trace.enable()
+    try:
+        with trace.span("outer"):
+            gc.collect()
+    finally:
+        trace.disable()
+    got = [s for s in trace.spans() if s.name.startswith("gc.")]
+    trace.clear()
+    assert [s.name for s in got] == ["gc.full"]
+    assert got[0].args["generation"] == 2
+    assert got[0].args["collected"] >= 0
+    assert got[0].parent.name == "outer"
+    assert got[0].t1 >= got[0].t0
+
+
+def test_disabled_mode_records_no_stage_or_collector_span():
+    trace.disable()
+    trace.clear()
+    before = list(gc.callbacks)
+    for invalid in (False, True):
+        analysis(cas_register(), _check_history(invalid),
+                 backend="device", device="cpu")
+    gc.collect()
+    assert trace.spans() == [] and trace.dropped_spans() == 0
+    assert gc.callbacks == before
+
+
+def test_trace_window_script_reads_the_stage_spans():
+    """``scripts/torch_trace_window.py``'s coverage of the check spans by
+    their stages, on a VALID and an INVALID check: ``linear.decode``
+    counts only where it decoded the INVALID verdict; collections are
+    put down to the span they paused."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_trace_window",
+        Path(__file__).resolve().parent.parent / "scripts"
+        / "torch_trace_window.py")
+    tw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tw)
+    spans = _traced_check(_check_history(False))[1] + \
+        _traced_check(_check_history(True))[1]
+    cov = tw.stage_coverage(spans)
+    assert {k: v["spans"] for k, v in cov.items()} == {
+        "linear.pack": 2, "linear.segments": 2, "linear.decode": 1}
+    assert all(0 < v["share"] <= 1 + 1e-9 for v in cov.values())
+    assert {"ops.pack", "memo.build"} <= set(cov["linear.pack"]["stages"])
+    assert {"counterexample.rescan", "counterexample.replay",
+            "counterexample.paths", "linear.decode.ops", "segments.make",
+            "segments.remap"} <= set(cov["linear.decode"]["stages"])
+    outer = trace.Span("segments.remap")
+    young = trace.Span("gc.young")
+    young.parent, young.t1 = outer, young.t0 + 0.5
+    assert tw.collections_by_parent([outer, young]) == {
+        "segments.remap": [0, 0.0, 1, pytest.approx(0.5)]}
 
 
 # --- the store's web browser (harness/web.py) -------------------------------
