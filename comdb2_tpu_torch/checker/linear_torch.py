@@ -35,13 +35,13 @@ The segment-search kernel itself lives in :mod:`.seg_kernel`.
 from __future__ import annotations
 
 import functools
-import heapq
 import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..kernels import build as _kbuild
 from ..obs import trace as _obs
 
 IDLE = -1
@@ -304,7 +304,6 @@ def make_segments(packed, s_pad: Optional[int] = None,
     return SegmentStream(inv_proc, inv_tr, ok_proc, seg_index, depth)
 
 
-@_obs.traced("segments.remap")
 def remap_slots(segs: SegmentStream, with_maps: bool = False):
     """Rename process ids in a segment stream to a minimal pool of
     reusable SLOTS. A process occupies a slot only while its call is
@@ -320,7 +319,13 @@ def remap_slots(segs: SegmentStream, with_maps: bool = False):
     Allocation is lowest-free-first within each segment's invoke list,
     releases happen after the segment's ok — so a slot freed by segment
     s is reusable from segment s+1 on. :info invokes never complete and
-    hold their slot for the rest of the stream.
+    hold their slot for the rest of the stream. An ok without an open
+    invocation maps to the smallest free slot (a fresh one, left free,
+    when none is), which is IDLE in every config.
+
+    The pass runs in ``kernels/remap_slots.cpp`` (built and loaded by
+    ``kernels/build.py``) over the arrays, so it makes no Python object
+    per segment.
 
     Returns ``(segs', P_eff)``, plus ``proc_of_slot`` (int32[S, P_eff];
     row s = which ORIGINAL process owns each slot after segment s, -1
@@ -329,69 +334,31 @@ def remap_slots(segs: SegmentStream, with_maps: bool = False):
     (:func:`.counterexample.reconstruct`).
     """
     S, K = segs.inv_proc.shape
-    ip = segs.inv_proc.tolist()
-    okl = segs.ok_proc.tolist()
-    out_ip = [row[:] for row in ip]
-    out_ok = list(okl)
-    slot_of: dict = {}
-    free: list = []
-    n_slots = 0
-    maps = [] if with_maps else None
-    owners: list = []
-    for s in range(S):
-        row = ip[s]
-        orow = out_ip[s]
-        for k in range(K):
-            p = row[k]
-            if p < 0:
-                continue
-            if p in slot_of:
-                raise ValueError(
-                    f"process {p} invokes in segment {s} while an "
-                    "earlier invocation is still open")
-            if free:
-                sl = heapq.heappop(free)
-            else:
-                sl = n_slots
-                n_slots += 1
-                owners.append(-1)
-            slot_of[p] = sl
-            owners[sl] = p
-            orow[k] = sl
-        o = okl[s]
-        if o >= 0:
-            sl = slot_of.pop(o, None)
-            if sl is None:
-                # ok without an open invocation: the process's slot is
-                # IDLE in every config, so the ok filter empties the
-                # frontier (INVALID at this segment). Any free slot is
-                # IDLE everywhere too — map to one to preserve exactly
-                # that instead of rejecting the stream.
-                if free:
-                    out_ok[s] = free[0]
-                else:
-                    out_ok[s] = n_slots
-                    n_slots += 1
-                    owners.append(-1)
-                    heapq.heappush(free, out_ok[s])
-            else:
-                out_ok[s] = sl
-                owners[sl] = -1
-                heapq.heappush(free, sl)
-        if with_maps:
-            maps.append(owners[:])
-    P_eff = n_slots
-    segs2 = SegmentStream(
-        np.asarray(out_ip, np.int32).reshape(S, K),
-        segs.inv_tr, np.asarray(out_ok, np.int32),
-        segs.seg_index, segs.depth)
-    if with_maps:
-        pos = np.full((S, max(P_eff, 1)), -1, np.int32)
-        for s, row in enumerate(maps):
-            if row:
-                pos[s, :len(row)] = row
+    with _obs.span("segments.remap", S=S, K=K) as sp:
+        lib = _kbuild.load_host()
+        inv = np.ascontiguousarray(segs.inv_proc, np.int32)
+        okp = np.ascontiguousarray(segs.ok_proc, np.int32)
+        out_ip = np.empty_like(inv)
+        out_ok = np.empty_like(okp)
+        err = np.zeros(2, np.int64)
+        P_eff = lib.remap_slots(inv.ctypes.data, okp.ctypes.data, S, K,
+                                out_ip.ctypes.data, out_ok.ctypes.data,
+                                None, 0, err.ctypes.data)
+        if P_eff < 0:
+            raise ValueError(
+                f"process {err[1]} invokes in segment {err[0]} while an "
+                "earlier invocation is still open")
+        sp.set(slots=P_eff)
+        segs2 = SegmentStream(out_ip, segs.inv_tr, out_ok,
+                              segs.seg_index, segs.depth)
+        if not with_maps:
+            return segs2, P_eff
+        # the same pass again, writing only the owner map, now that its
+        # width is known
+        pos = np.empty((S, max(P_eff, 1)), np.int32)
+        lib.remap_slots(inv.ctypes.data, okp.ctypes.data, S, K, None, None,
+                        pos.ctypes.data, pos.shape[1], err.ctypes.data)
         return segs2, P_eff, pos
-    return segs2, P_eff
 
 
 def remap_slots_batch(streams):

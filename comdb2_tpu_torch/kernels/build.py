@@ -12,6 +12,14 @@ the plain one (``seg_search.cu``'s ``SEG_PROFILE`` phase counters, read
 by ``scripts/torch_seg_profile.py``; ``pair_sort.cu``'s ``PS_PROFILE``
 phase stamps, read by ``scripts/torch_pair_sort_profile.py``).
 
+The host source (``HOST_SOURCE``: ``remap_slots.cpp``, the slot
+renaming of ``checker.linear_torch.remap_slots``) is plain C++ for the
+CPU, built the same way by the host's C++ compiler (``c++`` or ``g++``
+from ``PATH``) and loaded by :func:`load_host`; its hash also takes the
+compiler's path and ``--version`` and the machine, so a library built on
+another host is not loaded. ``SOURCES`` lists only the ``nvcc``
+sources, and only their builds count in ``compile_guard``.
+
 Nothing here runs at import: the CPU tests import every module, and
 the host they run on has no ``nvcc``.
 """
@@ -21,8 +29,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -31,6 +41,7 @@ from ..utils import compile_guard
 _HERE = Path(__file__).resolve().parent
 SOURCES = {"seg_search": _HERE / "seg_search.cu",
            "pair_sort": _HERE / "pair_sort.cu"}
+HOST_SOURCE = _HERE / "remap_slots.cpp"
 BUILD_DIR = _HERE.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -39,6 +50,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (``-Xptxas -v`` reports registers, shared memory and spills per
 #: kernel)
 BUILD_LOG: Dict[str, str] = {}
+
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _LIBS: Dict[tuple, ctypes.CDLL] = {}
 
@@ -85,24 +98,35 @@ def _flags(defines=()) -> list:
     return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
 
 
+def _path(src: Path, key: str) -> Path:
+    """Where the library built from ``src`` under ``key`` (the flags,
+    and for the host library the compiler's identity) lives."""
+    h = hashlib.sha256(src.read_bytes() + key.encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}_{h}.so"
+
+
 def library_path(name: str = "seg_search", defines=()) -> Path:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(SOURCES[name].read_bytes()
-                       + " ".join(_flags(defines)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{h}.so"
+    return _path(SOURCES[name], " ".join(_flags(defines)))
 
 
-def _start(name: str, defines=()):
+def _start(out: Path, cmd, src: Path):
+    """Start the compiler ``cmd`` (with its flags) on ``src`` into a
+    temporary file beside ``out``; returns ``(out, tmp, process)``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp.so")
+    return out, tmp, subprocess.Popen([*cmd, "-o", str(tmp), str(src)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+
+
+def _start_nvcc(name: str, defines=()):
     """Start ``nvcc`` for ``name`` unless its library is built; returns
-    ``(out, tmp, process)`` or None."""
+    what :func:`_start` does, or None."""
     out = library_path(name, defines)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(SOURCES[name])]
-    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
+    return _start(out, [_nvcc(), *_flags(defines)], SOURCES[name])
 
 
 def _finish(name: str, started) -> None:
@@ -110,28 +134,30 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     BUILD_LOG[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name} ({proc.returncode}):"
-                           f"\n{log}")
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(proc.args[0]).name} failed on {name} "
+                           f"({proc.returncode}):\n{log}")
     os.replace(tmp, out)
-    compile_guard.note_build()
 
 
 def build(name: str = "seg_search", defines=()) -> Path:
     """Compile one library unless it is already built; returns its
     path. Raises on a failed compile, with the compiler's output."""
-    started = _start(name, defines)
+    started = _start_nvcc(name, defines)
     if started is not None:
         _finish(name, started)
+        compile_guard.note_build()
     return library_path(name, defines)
 
 
 def build_all() -> None:
     """Compile every library not yet built, one ``nvcc`` per source,
     all running at once. Raises on the first failed compile."""
-    started = {n: _start(n) for n in SOURCES}
+    started = {n: _start_nvcc(n) for n in SOURCES}
     for name, st in started.items():
         if st is not None:
             _finish(name, st)
+            compile_guard.note_build()
 
 
 def load(name: str = "seg_search", defines=()) -> ctypes.CDLL:
@@ -177,3 +203,46 @@ def load(name: str = "seg_search", defines=()) -> ctypes.CDLL:
 
 def error_string(err: int, name: str = "seg_search") -> str:
     return getattr(load(name), f"{name}_error_string")(err).decode()
+
+
+# --- host libraries ---------------------------------------------------------
+
+def _host_cxx() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("c++ compiler not found: the host library builds "
+                       "with c++ or g++ from PATH")
+
+
+def _host_cmd() -> list:
+    return [_host_cxx(), *HOST_FLAGS]
+
+
+def host_library_path() -> Path:
+    """Where the host library for the current source, compiler, flags
+    and machine lives: a library built by another compiler or for
+    another machine is never loaded."""
+    cmd = _host_cmd()
+    ident = subprocess.run([cmd[0], "--version"], stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True).stdout
+    return _path(HOST_SOURCE,
+                 " ".join([*cmd, platform.machine()]) + "\n" + ident)
+
+
+def load_host() -> ctypes.CDLL:
+    """Build (at first use) and load the host library, with its
+    function's argument and result types declared."""
+    key = ("host",)
+    if key in _LIBS:
+        return _LIBS[key]
+    out = host_library_path()
+    if not out.exists():
+        _finish(HOST_SOURCE.stem, _start(out, _host_cmd(), HOST_SOURCE))
+    lib = ctypes.CDLL(str(out))
+    p, ll = ctypes.c_void_p, ctypes.c_longlong
+    lib.remap_slots.argtypes = [p, p, ll, ll, p, p, p, ll, p]
+    lib.remap_slots.restype = ll
+    _LIBS[key] = lib
+    return lib

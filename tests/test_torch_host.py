@@ -125,6 +125,171 @@ def test_remap_error_paths_match():
     assert a[0].ok_proc.tolist() == b[0].ok_proc.tolist()
 
 
+@pytest.fixture(scope="module")
+def cell_stream():
+    """A ``ctest-register-5t``-shaped stream: 5 processes, 100k events,
+    values 5, no :info, padded to (65536, 8) as the single-history
+    check pads it."""
+    h = TS.register_history(random.Random(7), n_procs=5, n_events=100_000,
+                            values=5, p_info=0.0)
+    segs = LT.make_segments(pack_history(h), s_pad=1 << 16, k_pad=8)
+    assert segs.inv_proc.shape == (1 << 16, 8)
+    return segs
+
+
+def _remap_both(segs, with_maps):
+    rj = LJ.remap_slots(LJ.SegmentStream(*segs), with_maps=with_maps)
+    rt = LT.remap_slots(segs, with_maps=with_maps)
+    assert rj[1] == rt[1]
+    for a, b in zip(rj[0], rt[0]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+    if with_maps:
+        assert rj[2].dtype == rt[2].dtype and rj[2].shape == rt[2].shape
+        assert rj[2].tobytes() == rt[2].tobytes()
+    return rt
+
+
+@pytest.mark.parametrize("with_maps", [False, True])
+def test_remap_byte_equal_at_the_cell_size(cell_stream, with_maps):
+    rt = _remap_both(cell_stream, with_maps)
+    assert 1 <= rt[1] <= 5
+
+
+def _orphan_stream(seed, S, K, n_procs):
+    """A stream whose oks are often orphans (no open invocation), each
+    taking a fresh slot when none is free: P_eff then passes the
+    opens-minus-releases bound."""
+    rng = np.random.default_rng(seed)
+    ip = np.full((S, K), -1, np.int32)
+    ok = np.full(S, -1, np.int32)
+    open_ = set()
+    for s in range(S):
+        idle = [p for p in range(n_procs) if p not in open_]
+        n = int(rng.integers(0, min(K, len(idle)) + 1))
+        for k, p in enumerate(rng.choice(idle, n, replace=False)):
+            ip[s, k] = p
+            open_.add(int(p))
+        r = rng.random()
+        if r < 0.3:
+            ok[s] = int(rng.choice(idle or [n_procs]))   # an orphan
+        elif r < 0.9 and open_:
+            ok[s] = int(rng.choice(sorted(open_)))
+            open_.discard(int(ok[s]))
+    return LT.SegmentStream(ip, np.zeros((S, K), np.int32), ok,
+                            np.arange(S, dtype=np.int64),
+                            np.zeros(S, np.int32))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_remap_orphans_past_the_opens_bound(seed):
+    segs = _orphan_stream(seed, 400, 4, 12)
+    opens = np.cumsum((segs.inv_proc >= 0).sum(axis=1))
+    rel = np.cumsum(segs.ok_proc >= 0)
+    bound = int(max((opens[1:] - rel[:-1]).max(), opens[0], 1))
+    rt = _remap_both(segs, with_maps=True)
+    assert rt[1] > bound
+
+
+def test_remap_makes_no_object_per_segment(cell_stream):
+    """The renaming of a 65,536-segment stream, owner map included,
+    leaves the collector's youngest count where it was and runs no
+    collection (a Python row per segment would make 131k lists)."""
+    import gc
+
+    LT.remap_slots(cell_stream, with_maps=True)      # the library loaded
+    runs = []
+
+    def note(phase, info):
+        if phase == "start":
+            runs.append(info["generation"])
+
+    gc.collect()
+    gc.callbacks.append(note)
+    try:
+        c0 = gc.get_count()[0]
+        LT.remap_slots(cell_stream, with_maps=True)
+        grew = gc.get_count()[0] - c0
+    finally:
+        gc.callbacks.remove(note)
+    assert runs == []
+    assert grew < 1000
+
+
+def test_remap_span_carries_its_size(cell_stream):
+    from comdb2_tpu_torch.obs import trace
+
+    before = len(trace.spans())
+    trace.enable()
+    try:
+        _, p_eff = LT.remap_slots(cell_stream)
+    finally:
+        trace.disable()
+    sp = [s for s in trace.spans()[before:] if s.name == "segments.remap"]
+    assert len(sp) == 1
+    assert sp[0].args == {"S": 1 << 16, "K": 8, "slots": p_eff}
+
+
+def _host_build_dir(monkeypatch, tmp_path):
+    from comdb2_tpu_torch.kernels import build
+
+    src = tmp_path / "src" / "remap_slots.cpp"
+    src.parent.mkdir()
+    src.write_bytes(build.HOST_SOURCE.read_bytes())
+    monkeypatch.setattr(build, "HOST_SOURCE", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    return build, src
+
+
+def test_host_library_builds_once(monkeypatch, tmp_path):
+    import subprocess
+
+    build, src = _host_build_dir(monkeypatch, tmp_path)
+    runs = []
+    real_start = build._start
+
+    def counted(*a):
+        runs.append(a)
+        return real_start(*a)
+
+    monkeypatch.setattr(build, "_start", counted)
+    lib = build.load_host()
+    assert build.load_host() is lib
+    monkeypatch.setattr(build, "_LIBS", {})        # another process
+    build.load_host()
+    assert len(runs) == 1
+    assert [p.name for p in (tmp_path / "_build").iterdir()] == \
+        [build.host_library_path().name]
+    path = build.host_library_path()
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert build.host_library_path() != path
+    src.write_text(src.read_text()[:-len("\n// edited\n")])
+    assert build.host_library_path() == path
+    machine = build.platform.machine()
+    monkeypatch.setattr(build.platform, "machine", lambda: "another")
+    assert build.host_library_path() != path
+    monkeypatch.setattr(build.platform, "machine", lambda: machine)
+    assert build.host_library_path() == path
+    cxx = build._host_cxx()                 # another compiler, same flags
+    monkeypatch.setattr(build, "_host_cxx", lambda: cxx + "-other")
+    monkeypatch.setattr(build.subprocess, "run",
+                        lambda cmd, **kw: subprocess.CompletedProcess(
+                            cmd, 0, stdout="other 1.0\n"))
+    assert build.host_library_path() != path
+
+
+def test_host_compiler_missing_raises(monkeypatch, tmp_path):
+    import shutil
+
+    build, _ = _host_build_dir(monkeypatch, tmp_path)
+    monkeypatch.setattr(shutil, "which", lambda *a, **kw: None)
+    with pytest.raises(RuntimeError, match=r"c\+\+ compiler not found"):
+        build.load_host()
+    assert not (tmp_path / "_build").exists() or \
+        not any((tmp_path / "_build").iterdir())
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_host_engine_matches(seed):
     fam = FAMILIES[seed % len(FAMILIES)]
