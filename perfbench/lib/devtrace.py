@@ -1,30 +1,22 @@
-"""The traced run's device trace: ``torch.profiler`` over the window.
+"""The traced run's device trace: ``torch.profiler`` over the slice of
+the run that the harness profiles.
 
-The profiler records the host's torch calls and the card's kernels,
-copies and sets. The program's kernels launch through wrappers that name
-each launch's kind (the segment search's ``seg_search`` for a single
-history or a carry, ``seg_search_stream`` for a stream launch); the
-harness records the kinds in launch order, and
-:meth:`Trace.name_launches` gives each run of the kernel its kind. A named host range opened as the trace starts ties the
-trace's clock to ``time.monotonic``, the clock of the program's spans
-and of the harness's calls, so an idle stretch of the card can be put
-down to what the host was doing then. The trace is written to a
-temporary file under ``TMPDIR``, read, and deleted.
+The profiler records the card's kernels, copies and sets. The program's
+kernels launch through wrappers that name each launch's kind (the
+segment search's ``seg_search`` for a single history or a carry,
+``seg_search_stream`` for a stream launch); the harness records the
+kinds in launch order, and :meth:`Trace.name_launches` gives each run of
+the kernel its kind. The trace's clock is tied to ``time.monotonic``,
+the clock of the program's spans and of the harness's calls, so an idle
+stretch of the card can be put down to what the host was doing then.
+Nothing is written to disk.
 """
 
 from __future__ import annotations
 
-import json
-import os
-import shutil
-import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
-
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-ANCHOR = "perfbench.anchor"
-
 
 #: the segment-search kernel, and its launch kinds
 SEG_KERNEL = "seg_search_kernel"
@@ -95,60 +87,71 @@ def short_name(name: str) -> str:
 
 
 class Profiler:
-    """``torch.profiler`` over host and device, started and stopped
-    around the window."""
+    """``torch.profiler`` over the card's activity alone, started and
+    stopped between two calls around the slice; its device ops are read
+    afterwards straight from the profiler's results. Host events are not
+    recorded: the profiler would record every torch call the host makes,
+    slow the host under trace by as much, and hand back a trace too
+    large to read within a run. One marker op, run alone between two
+    synchronisations as the profiler starts, ties the trace's clock to
+    ``time.monotonic``. Where the card's activity cannot be profiled (no
+    card), the trace is empty."""
 
     def __init__(self):
         self._prof = None
-        self._anchor = 0.0
+        self._mark = (0.0, 0.0)
 
     def start(self) -> None:
+        import torch
         from torch.profiler import (ProfilerActivity, profile,
-                                    record_function, supported_activities)
+                                    supported_activities)
 
-        acts = [a for a in (ProfilerActivity.CPU, ProfilerActivity.CUDA)
-                if a in supported_activities()]
-        self._prof = profile(activities=acts, record_shapes=False,
-                             with_stack=False, profile_memory=False)
+        if not torch.cuda.is_available() or \
+                ProfilerActivity.CUDA not in supported_activities():
+            return
+        mark = torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA],
+                             record_shapes=False, with_stack=False,
+                             profile_memory=False)
         self._prof.__enter__()
-        with record_function(ANCHOR):
-            self._anchor = time.monotonic()
+        a = time.monotonic()
+        mark.fill_(1)
+        torch.cuda.synchronize()
+        self._mark = (a, time.monotonic())
 
-    def stop(self) -> Trace:
+    def stop(self) -> None:
+        if self._prof is None:
+            return
         import torch
 
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         self._prof.__exit__(None, None, None)
-        tmp = tempfile.mkdtemp(prefix="perfbench_trace_")
-        try:
-            path = os.path.join(tmp, "trace.json")
-            self._prof.export_chrome_trace(path)
-            with open(path) as fh:
-                doc = json.load(fh)
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
+
+    def read(self) -> Trace:
+        if self._prof is None:
+            return Trace()
+        import torch
+
+        cuda = torch.autograd.DeviceType.CUDA
+        events = sorted(
+            ((e.start_ns(), e.duration_ns(), e.name())
+             for e in self._prof.profiler.kineto_results.events()
+             if e.device_type() == cuda), key=lambda e: e[0])
         self._prof = None
-        return _read(doc, self._anchor)
+        if not events:
+            raise RuntimeError("the profiler's trace lacks its marker op")
+        return _read(events, sum(self._mark) / 2)
 
 
-def _read(doc: dict, anchor_mono: float) -> Trace:
-    events = doc.get("traceEvents", [])
-    anchor = next((e for e in events
-                   if e.get("name") == ANCHOR and e.get("ph") == "X"),
-                  None)
-    if anchor is None:
-        raise RuntimeError("the profiler's trace lacks its anchor range")
-    base = float(anchor["ts"])
-
-    def mono(ts_us: float) -> float:
-        return anchor_mono + (float(ts_us) - base) * 1e-6
-
+def _read(events, mark_mono: float) -> Trace:
+    """The device ops after the marker, the first of ``events`` (``(start
+    ns, duration ns, name)`` in order), on the monotonic clock: the
+    marker ran inside the two synchronisations around it, and is put at
+    their midpoint, ``mark_mono``."""
+    base = events[0][0]
     tr = Trace()
-    for e in events:
-        if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
-            continue
-        a = mono(e["ts"])
-        tr.ops.append(DeviceOp(short_name(e.get("name", "?")), a,
-                               a + float(e.get("dur", 0)) * 1e-6))
+    for t, d, name in events[1:]:
+        a = mark_mono + (t - base) * 1e-9
+        tr.ops.append(DeviceOp(short_name(name), a, a + d * 1e-9))
     return tr

@@ -9,6 +9,20 @@ pool's every input once), so the window's time is the calls' time.
 on the program's spans, CUDA events around its kernel launches and
 ``torch.profiler``, and reports the per-layer metrics instead.
 
+A traffic file with ``whole_passes`` ends the window on a whole pass over
+the pool, so that every run checks the same inputs as often, however
+fast its host.
+
+The spans and the CUDA events cover the whole window, and their readers
+read the window alone. The device trace (``torch.profiler``) covers the
+slice: the whole window where the traffic file gives no ``trace_calls``;
+else ``trace_calls`` more calls made once the window has closed, from
+the call that ``trace_start`` names (``"mutated"``: the pool's first
+call whose input is mutated), so that the profiler slows no call of the
+window. The readers of the device trace read the slice alone, its time
+``[t0, t1]``, what its calls' inputs need and the launches noted in it.
+The slice's calls are judged with the window's.
+
 After the window, with the peak of device memory read and the program's
 state freed, the plain reference checks the answers: every answer of a
 sampled set of inputs (all of them in a traced run), drawn from the
@@ -57,6 +71,14 @@ class Call:
 
 
 @dataclass
+class Slice:
+    """What the device trace covers: its calls, from ``t0`` to ``t1``."""
+    calls: List[Call]
+    t0: float
+    t1: float
+
+
+@dataclass
 class Context:
     """What a metric's reader reads."""
     cell: cells.Cell
@@ -65,14 +87,28 @@ class Context:
     w1: float
     setup_s: float
     spans: list                          # (name, t0, t1), monotonic
-    trace: Optional[devtrace.Trace]
-    card_ms: Optional[float]
-    need: Dict[str, tuple]               # launch kind -> (ops, bytes)
+    trace: Optional[devtrace.Trace]      # the slice's device ops
+    card_ms: Optional[float]             # the window's
+    need: Dict[str, tuple]               # launch kind -> (ops, bytes),
+                                         # of the slice's calls
     peaks: object
+    slice: Optional[Slice] = None        # set in a traced run
 
     @property
     def window_s(self) -> float:
         return self.w1 - self.w0
+
+    @property
+    def slice_s(self) -> float:
+        return self.slice.t1 - self.slice.t0
+
+    @property
+    def busy_s(self) -> Optional[float]:
+        """Seconds of the slice in which some device op ran; None
+        without a trace."""
+        if self.trace is None:
+            return None
+        return self.trace.busy_s(self.slice.t0, self.slice.t1)
 
     @property
     def kops(self) -> float:
@@ -159,34 +195,47 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     phases["inputs_and_warm_up"] = time.monotonic() - t_start
     print("perfbench: set-up " + ", ".join(
         f"{k} by {v:.3f} s" for k, v in phases.items()), file=sys.stderr)
+    traffic = cell.traffic
+    least = max(getattr(caller, "least_calls", 1), 1)
+    trace_calls = traffic.get("trace_calls")
     instr = _Instruments(cuda) if trace else None
     if instr:
         instr.start()
+        if trace_calls is None:
+            instr.profile()
     w0 = time.monotonic()
     cpu0 = time.process_time()
     setup_s = w0 - t_start
     calls: List[Call] = []
     deadline = w0 + seconds
-    least = max(getattr(caller, "least_calls", 1), 1)
-    while len(calls) < least or calls[-1].t1 < deadline:
-        call = Call(len(calls), time.monotonic(), 0.0)
-        try:
-            call.ops, call.answers = caller.call(call.index)
-        except Exception as e:            # a failed call is counted
-            call.error = f"{type(e).__name__}: {e}"
-            print(f"perfbench: call {call.index}: {call.error}",
-                  file=sys.stderr)
-        if cuda:
-            torch.cuda.synchronize()
-        call.t1 = time.monotonic()
-        calls.append(call)
+    whole = bool(traffic.get("whole_passes"))
+    while len(calls) < least or calls[-1].t1 < deadline or \
+            (whole and len(calls) % least):
+        calls.append(_call(caller, len(calls), cuda))
     w1 = calls[-1].t1
     took = sorted(c.t1 - c.t0 for c in calls)
     print(f"perfbench: window {w1 - w0:.3f} s, this process's CPU "
           f"{time.process_time() - cpu0:.3f} s, {len(calls)} calls of "
           f"{took[0]:.4f} / {took[len(took) // 2]:.4f} / {took[-1]:.4f} s "
           "(least / median / most)", file=sys.stderr)
-    observed = instr.stop() if instr else None
+    sl = None
+    if instr:
+        instr.close_window()
+        if trace_calls is None:
+            instr.unprofile()
+            sl = Slice(calls, w0, w1)
+        else:
+            j0 = slice_start(caller, traffic.get("trace_start", 0))
+            instr.profile()
+            s0 = time.monotonic()
+            done = [_call(caller, j0 + k, cuda) for k in range(trace_calls)]
+            instr.unprofile()
+            sl = Slice(done, s0, done[-1].t1)
+        spans, tr = instr.stop()
+        print(f"perfbench: device trace of {len(sl.calls)} calls over "
+              f"{sl.t1 - sl.t0:.3f} s, stopped in {instr.stop_s:.3f} s, "
+              f"read in {instr.read_s:.3f} s", file=sys.stderr)
+    every = calls + (sl.calls if sl and sl.calls is not calls else [])
     leaked = forbidden_modules()
     if leaked:
         raise RuntimeError(f"the window loaded {', '.join(leaked)}")
@@ -199,17 +248,20 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
 
-    checks, truth = check_answers(caller, calls, seed, full=trace)
+    t_ref = time.monotonic()
+    checks, truth = check_answers(caller, every, seed, full=trace)
+    print(f"perfbench: the reference checked {len(truth)} inputs in "
+          f"{time.monotonic() - t_ref:.3f} s", file=sys.stderr)
     result = {"correct": all(holds(c) for c in checks.values()),
-              "attempted": len(calls),
-              "failed": sum(1 for c in calls if c.error is not None),
+              "attempted": len(every),
+              "failed": sum(1 for c in every if c.error is not None),
               "metrics": {}, "device": dev}
     ctx = Context(cell, calls, w0, w1, setup_s, [], None, None, {}, None)
     if trace:
-        spans, ctx.trace, ctx.card_ms = observed
-        ctx.spans = spans + [("perfbench.call", c.t0, c.t1) for c in calls]
+        ctx.trace, ctx.card_ms, ctx.slice = tr, instr.card, sl
+        ctx.spans = spans + [("perfbench.call", c.t0, c.t1) for c in every]
         unit_need, needs = getattr(caller, "need", None), {}
-        for c in calls if unit_need else ():
+        for c in sl.calls if unit_need else ():
             for u in c.answers:
                 if u not in needs:
                     needs[u] = unit_need(u)
@@ -224,12 +276,13 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         v = cell.reader(m["name"]).read(ctx)
         if v is not None:
             result["metrics"][m["name"]] = {"value": v, "unit": m["unit"]}
-    if trace and ctx.trace is not None:
-        busy = ctx.trace.busy_s(w0, w1)
-        if busy <= 0 and ctx.card_ms:
-            busy = ctx.card_ms / 1e3     # no device time in the trace
-        dev["busy_s"] = busy
-        dev["window_s"] = w1 - w0
+    if trace:
+        dev["busy_s"] = ctx.busy_s
+        dev["window_s"] = ctx.slice_s
+        dev["trace_calls"] = len(sl.calls)
+        dev["trace_device_ops"] = len(tr.ops)
+        dev["trace_stop_s"] = instr.stop_s
+        dev["trace_read_s"] = instr.read_s
         result["breakdown"] = breakdown(ctx)
     if cuda:
         from . import peaks as _peaks
@@ -237,6 +290,32 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         dev["power_limit_w"] = _peaks.power_limit_w()
     result["checks"] = checks
     return result
+
+
+def _call(caller, j: int, cuda: bool) -> Call:
+    """Call ``j`` of the caller, whole and synchronised; one that raises
+    is counted as failed."""
+    call = Call(j, time.monotonic(), 0.0)
+    try:
+        call.ops, call.answers = caller.call(j)
+    except Exception as e:
+        call.error = f"{type(e).__name__}: {e}"
+        print(f"perfbench: call {j}: {call.error}", file=sys.stderr)
+    if cuda:
+        import torch
+
+        torch.cuda.synchronize()
+    call.t1 = time.monotonic()
+    return call
+
+
+def slice_start(caller, start) -> int:
+    """The index of the slice's first call: ``start`` itself, or for
+    ``"mutated"`` the first call of a pass whose input is mutated."""
+    if start == "mutated":
+        return next(j for j in range(max(caller.least_calls, 1))
+                    if any(caller.mutated(u) for u in caller.units(j)))
+    return int(start)
 
 
 def answer(valid, op_index, configs=None, paths=None) -> tuple:
@@ -295,14 +374,18 @@ def judge(calls: List[Call], truth: dict) -> dict:
 
 
 class _Instruments:
-    """The traced run's instruments: the program's spans, CUDA events
-    around its kernel launches, the kind of each launch as its wrapper
-    names it, and ``torch.profiler``."""
+    """The traced run's instruments: the program's spans and CUDA events
+    around its kernel launches, from :meth:`start` to :meth:`stop`; over
+    the slice, from :meth:`profile` to :meth:`unprofile`,
+    ``torch.profiler`` and the kind of each launch as its wrapper names
+    it."""
 
     def __init__(self, cuda: bool):
         self.cuda = cuda
         self.prof = devtrace.Profiler()
         self.launches: List[str] = []
+        self.card: Optional[float] = None
+        self.stop_s = self.read_s = 0.0
 
     def start(self) -> None:
         from comdb2_tpu_torch.obs import trace as obs
@@ -315,6 +398,9 @@ class _Instruments:
             self.card0 = compile_guard.card_ms()
         self._note = compile_guard.note_launch
 
+    def profile(self) -> None:
+        from comdb2_tpu_torch.utils import compile_guard
+
         def noted(kernel, *a, **kw):
             self.launches.append(kernel)
             return self._note(kernel, *a, **kw)
@@ -322,39 +408,55 @@ class _Instruments:
         compile_guard.note_launch = noted
         self.prof.start()
 
+    def unprofile(self) -> None:
+        from comdb2_tpu_torch.utils import compile_guard
+
+        t = time.monotonic()
+        self.prof.stop()
+        self.stop_s = time.monotonic() - t
+        compile_guard.note_launch = self._note
+
+    def close_window(self) -> None:
+        """The window's card ms, read as it closes."""
+        from comdb2_tpu_torch.utils import compile_guard
+
+        if self.cuda:
+            self.card = compile_guard.card_ms() - self.card0
+
     def stop(self):
+        """The spans, and the slice's device trace with its launches
+        named."""
         from comdb2_tpu_torch.obs import trace as obs
         from comdb2_tpu_torch.utils import compile_guard
 
-        tr = self.prof.stop()
-        compile_guard.note_launch = self._note
+        t = time.monotonic()
+        tr = self.prof.read()
+        self.read_s = time.monotonic() - t
         tr.name_launches(self.launches)
-        card = None
         if self.cuda:
-            card = compile_guard.card_ms() - self.card0
             compile_guard.time_launches(False)
         obs.disable()
         spans = [(s.name, s.t0, s.t1) for s in obs.spans()
                  if s.t1 is not None]
         obs.clear()
-        return spans, tr, card
+        return spans, tr
 
 
 def breakdown(ctx: Context, top: int = 10) -> dict:
-    """The device ops that took the most time in the window, by name,
-    and the card's idle time by what the host was doing: each idle
-    stretch split over the innermost spans open in it
+    """The device ops that took the most time in the slice, by name,
+    and the card's idle time there by what the host was doing: each
+    idle stretch split over the innermost spans open in it
     (``perfbench.call`` where the program opened none)."""
-    tr = ctx.trace
+    tr, t0, t1 = ctx.trace, ctx.slice.t0, ctx.slice.t1
     by_op: Dict[str, float] = {}
     for o in tr.ops:
-        a, b = max(o.t0, ctx.w0), min(o.t1, ctx.w1)
+        a, b = max(o.t0, t0), min(o.t1, t1)
         if b > a:
             by_op[o.name] = by_op.get(o.name, 0.0) + (b - a)
     spans = ctx.spans
     pts = [(t, kind, i) for i, (_, a, b) in enumerate(spans)
            for t, kind in ((a, 1), (b, 0))]
-    pts += [(t, kind, -1) for a, b in tr.gaps(ctx.w0, ctx.w1)
+    pts += [(t, kind, -1) for a, b in tr.gaps(t0, t1)
             for t, kind in ((a, 2), (b, 3))]
     by_span: Dict[str, float] = {}
     active: List[int] = []          # open spans, the innermost last

@@ -55,7 +55,7 @@ def least_seconds(ops: float, nbytes: float, peaks: Peaks) -> float:
 def kernel_share(ctx, kind: str):
     """The segment search's roofline share in its launches of one kind
     (``seg_search`` or ``seg_search_stream``), in %: the least time of
-    what the window's inputs need of that kind, over the card's time in
+    what the slice's inputs need of that kind, over the card's time in
     the kernel's runs of that kind in the profiler's trace. None where
     the trace shows no such run, or the cell's caller says nothing of
     what its inputs need."""

@@ -1,8 +1,8 @@
-"""``check_mfu``: the whole window's share of the card's peak: the least
-time of everything the window's inputs need of the segment search, over
-the window's time. It bounds every kernel's roofline share, so a change
-that takes a kernel off the path cannot hide behind that kernel's
-silence."""
+"""``check_mfu``: the share of the card's peak over the device trace's
+slice: the least time of everything the slice's inputs need of the
+segment search, over the slice's time. It bounds every kernel's
+roofline share, so a change that takes a kernel off the path cannot
+hide behind that kernel's silence."""
 
 from perfbench.lib import roofline
 
@@ -13,4 +13,4 @@ def read(ctx):
     if not ops or ctx.peaks is None:
         return None
     return 100.0 * roofline.least_seconds(ops, nbytes, ctx.peaks) / \
-        ctx.window_s
+        ctx.slice_s

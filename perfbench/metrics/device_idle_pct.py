@@ -1,14 +1,8 @@
-"""``device_idle_pct``: the share of the window in which no kernel, copy
-or set ran on the card, from ``torch.profiler``'s device activity; where
-the trace holds none, from the CUDA events around the kernel launches."""
+"""``device_idle_pct``: the share of the device trace's slice in which
+no kernel, copy or set ran on the card, from ``torch.profiler``'s device
+activity."""
 
 
 def read(ctx):
-    if ctx.trace is None:
-        return None
-    busy = ctx.trace.busy_s(ctx.w0, ctx.w1)
-    if busy <= 0:
-        if not ctx.card_ms:
-            return None
-        busy = ctx.card_ms / 1e3
-    return 100.0 * (1.0 - busy / ctx.window_s)
+    busy = ctx.busy_s
+    return 100.0 * (1.0 - busy / ctx.slice_s) if busy else None

@@ -35,15 +35,17 @@ def cuda():
 #: sizes at which the program's plain kernel versions check a cell's
 #: inputs in seconds on the CPU
 SMALL = {"ctest-register-5t": ({"n_events": 2000},
-                               {"invalid_share": 0.5})}
+                               {"invalid_share": 0.5}),
+         "comdb2-register-tester": ({"n_events": 240},
+                                    {"invalid_share": 0.5})}
 
 
 @pytest.fixture()
 def small_root(tmp_path):
     """A checkout's root holding ``BENCHMARK.json`` and a copy of
-    ``perfbench/``, its configurations cut to :data:`SMALL` and the
-    pool to 4, so that a cell's first calls meet an INVALID and a VALID
-    input."""
+    ``perfbench/``, its configurations cut to :data:`SMALL` and every
+    traffic mix's pool to 4, so that a cell's first calls meet an
+    INVALID and a VALID input."""
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
     shutil.copytree(os.path.join(ROOT, "perfbench"),
                     tmp_path / "perfbench",
@@ -54,8 +56,8 @@ def small_root(tmp_path):
         c["history"] = {**c["history"], **history}
         c.update(top)
         p.write_text(json.dumps(c))
-    p = tmp_path / "perfbench" / "traffic" / "single.json"
-    t = json.loads(p.read_text())
-    t["pool"] = 4
-    p.write_text(json.dumps(t))
+    for p in (tmp_path / "perfbench" / "traffic").glob("*.json"):
+        t = json.loads(p.read_text())
+        t["pool"] = 4
+        p.write_text(json.dumps(t))
     return str(tmp_path)

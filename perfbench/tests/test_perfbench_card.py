@@ -16,7 +16,7 @@ from conftest import ROOT
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize("cell", ["ctest5p.single"])
+@pytest.mark.parametrize("cell", ["ctest5p.single", "register10p.indep"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_cell_runs_correct_on_the_card(cuda, cell, trace):
     with open(f"{ROOT}/BENCHMARK.json") as fh:
@@ -35,4 +35,7 @@ def test_cell_runs_correct_on_the_card(cuda, cell, trace):
             if cell in m.get("workloads", [cell])}
     assert set(out["metrics"]) == want
     if trace:
-        assert 0 < out["device"]["busy_s"] <= out["device"]["window_s"]
+        dev = out["device"]
+        assert 0 < dev["busy_s"] <= dev["window_s"]
+        assert dev["trace_device_ops"] > 0
+        assert dev["trace_calls"] <= out["attempted"]

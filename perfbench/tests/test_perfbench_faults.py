@@ -7,7 +7,7 @@ import pytest
 
 from perfbench.lib import cells, harness
 
-CELLS = ("ctest5p.single",)
+CELLS = ("ctest5p.single", "register10p.indep")
 SEED = 2**31 + 77
 
 
@@ -20,6 +20,14 @@ def _run(root, cell):
 def test_sound_run_is_correct(small_root, cell):
     r = _run(small_root, cell)
     assert r["correct"], r["checks"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_sound_traced_run_is_correct(small_root, cell):
+    r = harness.run_cell(cells.load(small_root, cell), SEED, 2.0, True,
+                         device="cpu")
+    assert r["correct"], r["checks"]
+    assert r["checks"]["invalid_compared"]["value"] >= 1
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -53,6 +61,18 @@ def test_step_returns_its_state_unchanged(small_root, cell, monkeypatch):
 
     monkeypatch.setattr(SK, "seg_search_reference", unchanged)
     r = _run(small_root, cell)
+    assert not r["correct"] and r["checks"]["mismatched"]["value"] > 0
+
+
+def test_ladder_step_returns_its_state_unchanged(small_root, monkeypatch):
+    """The seg2 ladder, which takes every test of ``register10p.indep``
+    past the kernel's frontier, hands back its starting state: VALID at
+    the first rung."""
+    from comdb2_tpu_torch.checker import linear_torch as LT
+
+    monkeypatch.setattr(LT, "check_device_seg2",
+                        lambda *a, **kw: (LT.VALID, -1, 1))
+    r = _run(small_root, "register10p.indep")
     assert not r["correct"] and r["checks"]["mismatched"]["value"] > 0
 
 
@@ -92,10 +112,11 @@ def test_counterexample_altered_where_produced(small_root, cell, fault,
     assert r["checks"]["counterexample_wrong"]["value"] > 0
 
 
+@pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("name,number", [("unindexed", "mismatched"),
                                          ("unreported",
                                           "counterexample_wrong")])
-def test_control_is_not_correct(small_root, name, number):
+def test_control_is_not_correct(small_root, name, number, cell):
     import importlib.util
     import os
 
@@ -104,7 +125,6 @@ def test_control_is_not_correct(small_root, name, number):
                                           "control.py"))
     control = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(control)
-    r = control.control_run(cells.load(small_root, "ctest5p.single"), SEED,
-                            6, name)
+    r = control.control_run(cells.load(small_root, cell), SEED, 6, name)
     assert not r["correct"]
     assert r["checks"][number]["value"] >= 1

@@ -15,7 +15,7 @@ RUN = """
 import json, sys
 sys.path.insert(0, {root!r})
 from perfbench.lib import cells, harness
-for cell in ("ctest5p.single",):
+for cell in ("ctest5p.single", "register10p.indep"):
     r = harness.run_cell(cells.load({small!r}, cell), 5, 1.0, {trace},
                          device="cpu")
     assert r["correct"], r
